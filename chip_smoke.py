@@ -1,37 +1,51 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one CUDA
+card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the kernel from csrc/ with nvcc (sm_90a), timed;
-  3. each kernel against its plain PyTorch version on the same inputs, at
-     the tests' small scene and at one camera of the full-width scene,
-     plus the tiled render against the dense oracle on the small scene;
-  4. the main path: a trained-model directory (100k splats, SH degree 3,
+  2. build every kernel from csrc/ with nvcc (sm_90a), one nvcc process per
+     source, all started together, each timed;
+  3. each kernel against its plain PyTorch version on the same inputs:
+     raster_fwd (K1), raster_bwd (K2) with a fixed-seed cotangent, segsum
+     (K5) on K2's rows, and the per-splat gradients under
+     GMT_GRAD_REDUCE=compact vs segsum, at the tests' small scene and at
+     full width; the tiled render and its gradients against the dense
+     oracle on the small scene;
+  4. the serving path: a trained-model directory (100k splats, SH degree 3,
      8 views at 776x584, made from --seed) rendered by
-     gaussmart_tpu_torch.render_cli on the card, with the kernels' launch
-     counts zeroed just before and read just after; its saved renders
-     held against in-memory renders of the same splats, and its loaded
-     splats rendered for the mean alpha;
-  5. full-width timings with CUDA events (median over FRAMES calls after
-     warm-up): each kernel, its plain version, preprocess + binning, and
-     one whole render_arrays frame; each kernel's bound from this run's
-     inputs.
-The last lines are the kernels JSON, the nvidia-smi line, and
+     gaussmart_tpu_torch.render_cli, its saved renders held against
+     in-memory renders of the same splats;
+  5. the training path: a COLMAP scene (4 views at 776x584 with random
+     targets, bench.py's 100k-point cloud) trained by
+     gaussmart_tpu_torch.train.main for TRAIN_ITERS iterations (densify,
+     eval, save and checkpoint on the way), resumed from its checkpoint
+     for RESUME_ITERS more, then trained SEGSUM_ITERS iterations under
+     GMT_GRAD_REDUCE=segsum;
+  6. timings with CUDA events (median over FRAMES calls after warm-up):
+     the serving frame, the training step on bench.py's mid-training state
+     (iterations/s, per-stage breakdown, device busy share from
+     torch.profiler), and each kernel, its plain version and the library
+     call that computes the same function; each kernel's bound from this
+     run's inputs.
+Each path's kernel launch counts are set to 0 just before it runs and read
+just after. The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 gaussmart_tpu_torch package beside it, it fails before printing a result.
 """
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -39,17 +53,31 @@ import numpy as np
 WIDTH, HEIGHT, N_SPLATS, SH_DEGREE, N_VIEWS = 776, 584, 100_000, 3, 8
 FOVX, FOVY = 1.2, 0.9
 ITERATION = 30000
+TRAIN_VIEWS = 4           # bench.py's 4 cameras
+TRAIN_ITERS, RESUME_ITERS, SEGSUM_ITERS = 30, 2, 5
+EVAL_RENDERS = 5          # train.report_eval: 5 train views, no test split
 FRAMES = 20               # timed calls per measurement (median)
+PLAIN_FRAMES = 3          # the plain versions take seconds per call
+# kernel -> the TPU kernel it replaces (csrc/<kernel>.cu holds each)
+KERNELS = {"raster_fwd": "gaussmart_tpu/render/raster_pallas.py:327",
+           "raster_bwd": "gaussmart_tpu/render/raster_pallas.py:499",
+           "segsum": "gaussmart_tpu/render/segsum_pallas.py:59"}
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-# float32 operations of raster_fwd (csrc/raster_fwd.cu), counted from its
-# source: per (entry, pixel) evaluation up to the alpha test, and per
-# entry a pixel blends
+# float32 operations counted from the kernels' sources: one evaluation of
+# an entry at a pixel up to the alpha test (raster_fwd.cu, raster_bwd.cu),
+# one forward blend, and one backward step of raster_bwd.cu without the
+# distortion and median terms (the training default) before its per-field
+# sum over the tile's pixels (one add per field)
 OPS_PER_EVAL = 50
 OPS_PER_BLEND = 39
-FLOAT_TOL = 1e-4          # kernel vs plain, every float channel
-INT_AGREE = 0.999         # kernel vs plain, n_contrib / med_e pixel share
+OPS_PER_BWD_STEP = 103
+FLOAT_TOL = 1e-4          # K1 vs plain, every float channel
+INT_AGREE = 0.999         # K1 vs plain, n_contrib / med_e pixel share
+BWD_TOL = 1e-5            # K2 vs plain, per column, of the column's max |value|
+SEGSUM_TOL = 1e-5         # K5 vs plain and compact vs segsum, likewise
+GRAD_ATOL, GRAD_RTOL = 3e-3, 2e-2   # tiled vs dense gradients (x max |g|)
 PNG_TOL = 1               # saved render vs in-memory render, 8-bit levels
 
 
@@ -59,6 +87,39 @@ def card_line() -> str:
                          text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
 
+
+def card_state() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                           "power.limit,temperature.gpu", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip()
+
+
+def fail(msg):
+    raise SystemExit(msg)
+
+
+def build_all():
+    """Unlink and rebuild every kernel from the checkout's sources, one nvcc
+    process per source, all at once."""
+    from gaussmart_tpu_torch import kernels
+
+    def one(name):
+        kernels.library_path(name).unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        log = kernels.build(name)
+        return name, time.perf_counter() - t0, log
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for name, dt, log in pool.map(one, KERNELS):
+            print(f"[build] {name} built with nvcc {' '.join(kernels.NVCC_FLAGS)} "
+                  f"in {dt:.2f} s")
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[build] {name}: {line.strip()}")
+
+
+# --- scenes ---------------------------------------------------------------
 
 def bench_cameras(n_views, width, height):
     """bench.py's camera poses (rotation about y by 0.1 rad steps, 0.1
@@ -75,10 +136,24 @@ def bench_cameras(n_views, width, height):
     return cams
 
 
+def bimodal_opacity(rng, n):
+    """bench.py's mid-training opacity: 60% in [0.7, 0.99], the rest in
+    [0.05, 0.3]."""
+    return np.where(rng.random(n) < 0.6, rng.uniform(0.7, 0.99, n),
+                    rng.uniform(0.05, 0.3, n))
+
+
+def bench_points(rng, n):
+    """bench.py's point cloud: centres uniform in [-1,1]^2 x [2,5] and
+    random colours in [0, 1]."""
+    pts = np.stack([rng.uniform(-1, 1, n), rng.uniform(-1, 1, n),
+                    rng.uniform(2.0, 5.0, n)], axis=1).astype(np.float32)
+    return pts, rng.random((n, 3)).astype(np.float32)
+
+
 def scene_params(seed, n, sh_degree):
-    """bench.py's splat distribution: centres uniform in [-1,1]^2 x [2,5],
-    3-NN log-scales, random unit quaternions, bimodal opacity (60% in
-    [0.7, 0.99], the rest in [0.05, 0.3]), random colours and f_rest of
+    """A trained model's splats: bench.py's centres, 3-NN log-scales,
+    random unit quaternions, bimodal opacity, random colours and f_rest of
     scale 0.1 so every SH band is exercised."""
     from gaussmart_tpu_torch.models.gaussians import mean_sq_dist_to_3nn
     from gaussmart_tpu_torch.ops.sh import rgb2sh
@@ -88,8 +163,7 @@ def scene_params(seed, n, sh_degree):
     dist2 = np.maximum(mean_sq_dist_to_3nn(xyz), 1e-7)
     scaling = np.log(np.sqrt(dist2))[:, None].repeat(2, axis=1)
     q = rng.normal(size=(n, 4))
-    op = np.where(rng.random(n) < 0.6, rng.uniform(0.7, 0.99, n),
-                  rng.uniform(0.05, 0.3, n))
+    op = bimodal_opacity(rng, n)
     k = (sh_degree + 1) ** 2
     return {
         "xyz": xyz,
@@ -101,41 +175,49 @@ def scene_params(seed, n, sh_degree):
     }
 
 
-def write_model_dir(root, seed, n, width, height, n_views):
-    """A trained-model directory: COLMAP text source with GT PNGs, the
-    snapshot at point_cloud/iteration_30000, and cfg_args.json."""
+def write_colmap_source(src, cams, images, pts, rgb):
+    """A COLMAP text scene: one PINHOLE camera (fovx/fovy), the cameras'
+    poses, their uint8 images as PNG, and the point cloud as
+    sparse/0/points3D.ply."""
     from gaussmart_tpu_torch.cameras import fov2focal
     from gaussmart_tpu_torch.io import colmap
-    from gaussmart_tpu_torch.io.gaussian_ply import save_gaussian_ply
     from gaussmart_tpu_torch.io.images import write_png
-    from gaussmart_tpu_torch.models.gaussians import state_from_numpy
-
-    src, model = os.path.join(root, "scene"), os.path.join(root, "model")
+    from gaussmart_tpu_torch.io.ply import store_point_cloud
     sparse = os.path.join(src, "sparse", "0")
     os.makedirs(sparse)
-    params = scene_params(seed, n, SH_DEGREE)
-    state = state_from_numpy(params, np.ones(n, bool), np.zeros(n, np.int32),
-                             SH_DEGREE, SH_DEGREE, 1.0, device="cpu")
-    save_gaussian_ply(os.path.join(model, "point_cloud", f"iteration_{ITERATION}",
-                                   "point_cloud.ply"), state)
-
-    cams = bench_cameras(n_views, width, height)
+    width, height = cams[0].width, cams[0].height
     colmap.write_cameras_text(os.path.join(sparse, "cameras.txt"), {
         1: colmap.ColmapCamera(1, "PINHOLE", width, height, np.array([
-            fov2focal(FOVX, width), fov2focal(FOVY, height),
+            fov2focal(cams[0].fovx, width), fov2focal(cams[0].fovy, height),
             width / 2, height / 2]))})
     colmap.write_images_text(os.path.join(sparse, "images.txt"), {
         c.uid + 1: colmap.ColmapImage(c.uid + 1, colmap.rotmat2qvec(c.R.T),
                                       np.asarray(c.T), 1, f"{c.image_name}.png")
         for c in cams})
-    with open(os.path.join(sparse, "points3D.txt"), "w") as f:
-        for i, p in enumerate(params["xyz"][:1000]):
-            f.write(f"{i + 1} {p[0]} {p[1]} {p[2]} 128 128 128 0.5\n")
+    store_point_cloud(os.path.join(sparse, "points3D.ply"), pts, rgb)
+    for c, img in zip(cams, images):
+        write_png(os.path.join(src, "images", f"{c.image_name}.png"), img)
+
+
+def write_model_dir(root, seed, n, width, height, n_views):
+    """A trained-model directory: COLMAP source with GT PNGs, the snapshot
+    at point_cloud/iteration_30000, and cfg_args.json."""
+    from gaussmart_tpu_torch.io.gaussian_ply import save_gaussian_ply
+    from gaussmart_tpu_torch.models.gaussians import state_from_numpy
+
+    src, model = os.path.join(root, "scene"), os.path.join(root, "model")
+    params = scene_params(seed, n, SH_DEGREE)
+    state = state_from_numpy(params, np.ones(n, bool), np.zeros(n, np.int32),
+                             SH_DEGREE, SH_DEGREE, 1.0, device="cpu")
+    save_gaussian_ply(os.path.join(model, "point_cloud", f"iteration_{ITERATION}",
+                                   "point_cloud.ply"), state)
+    cams = bench_cameras(n_views, width, height)
     yy, xx = np.mgrid[0:height, 0:width]
-    for i, c in enumerate(cams):
-        gt = np.stack([xx * 255 // width, yy * 255 // height,
-                       np.full_like(xx, 32 * i)], axis=-1).astype(np.uint8)
-        write_png(os.path.join(src, "images", f"{c.image_name}.png"), gt)
+    gts = [np.stack([xx * 255 // width, yy * 255 // height,
+                     np.full_like(xx, 32 * i)], axis=-1).astype(np.uint8)
+           for i in range(n_views)]
+    pts = params["xyz"][:1000]
+    write_colmap_source(src, cams, gts, pts, np.full((len(pts), 3), 128.0))
     with open(os.path.join(model, "cfg_args.json"), "w") as f:
         json.dump({"source_path": src, "model_path": model,
                    "sh_degree": SH_DEGREE, "images": "images",
@@ -144,98 +226,367 @@ def write_model_dir(root, seed, n, width, height, n_views):
     return model, cams, params
 
 
+def write_train_scene(src, seed, n, width, height):
+    """The training scene: bench.py's 4 cameras, random uint8 targets and
+    its 100k-point cloud (colours as 8-bit RGB)."""
+    rng = np.random.default_rng(seed)
+    pts, cols = bench_points(rng, n)
+    cams = bench_cameras(TRAIN_VIEWS, width, height)
+    targets = [(rng.random((height, width, 3)) * 256).astype(np.uint8) for _ in cams]
+    write_colmap_source(src, cams, targets, pts, np.round(cols * 255.0))
+
+
+def bench_state(seed, n, width, height, device):
+    """bench.py's training state (main, lines 56-83): init_from_pcd on its
+    points, the bimodal mid-training opacity, its 4 cameras and random
+    float targets."""
+    import torch
+    from gaussmart_tpu_torch.models.gaussians import init_from_pcd
+    from gaussmart_tpu_torch.transforms import inverse_sigmoid
+    rng = np.random.default_rng(seed)
+    pts, cols = bench_points(rng, n)
+    state = init_from_pcd(pts, cols, None, max_sh_degree=SH_DEGREE,
+                          spatial_lr_scale=1.0, capacity=-(-n // 256) * 256,
+                          device=device)
+    op = torch.tensor(bimodal_opacity(rng, n), dtype=torch.float32, device=device)
+    state.params.opacity[:n, 0] = inverse_sigmoid(op)
+    cams = bench_cameras(TRAIN_VIEWS, width, height)
+    gts = [torch.tensor(rng.random((3, height, width)), dtype=torch.float32,
+                        device=device) for _ in cams]
+    return state, [c.params(device) for c in cams], gts
+
+
 def small_scene(device):
-    """The tests' scene: 30 splats at 64x32 seen from the origin."""
+    """The tests' scene: 30 splats at 64x32 seen from the origin; returns
+    the camera and its raw arrays (scales, opacity, SH degree 0)."""
     import torch
     from gaussmart_tpu_torch.cameras import Camera
     from gaussmart_tpu_torch.ops.sh import rgb2sh
-    from gaussmart_tpu_torch.render.raster_common import preprocess
     rng = np.random.default_rng(0)
     n = 30
     cam = Camera(uid=0, colmap_id=0, image_name="t", R=np.eye(3),
                  T=np.zeros(3), fovx=0.8, fovy=0.8, width=64, height=32)
     xyz = np.stack([rng.uniform(-0.6, 0.6, n), rng.uniform(-0.6, 0.6, n),
                     rng.uniform(2.0, 4.0, n)], axis=1)
-    scales = 0.15 * rng.uniform(0.5, 1.5, (n, 2))
-    quats = rng.normal(size=(n, 4))
-    shs = rgb2sh(rng.random((n, 1, 3)))
+    arrays = dict(xyz=xyz, scales=0.15 * rng.uniform(0.5, 1.5, (n, 2)),
+                  quats=rng.normal(size=(n, 4)), opacity=np.full(n, 0.8),
+                  shs=rgb2sh(rng.random((n, 1, 3))))
+    return cam, {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+                 for k, v in arrays.items()}
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
-    prep = preprocess(t(xyz), t(scales), t(quats), t(np.full(n, 0.8)), t(shs),
+
+def small_prep(cam, a, device):
+    import torch
+    from gaussmart_tpu_torch.render.raster_common import preprocess
+    n = a["xyz"].shape[0]
+    return preprocess(a["xyz"], a["scales"], a["quats"], a["opacity"], a["shs"],
                       torch.ones(n, dtype=torch.bool, device=device),
                       cam.params(device), sh_degree=0)
-    return cam, prep
 
 
-def full_prep(params, cam, device):
-    import torch
-    from gaussmart_tpu_torch.models.gaussians import state_from_numpy
+def frame_prep(state, cam, sh_degree, active_degree=None):
     from gaussmart_tpu_torch.render.raster_common import preprocess
-    n = params["xyz"].shape[0]
-    st = state_from_numpy(params, np.ones(n, bool), np.zeros(n, np.int32),
-                          SH_DEGREE, SH_DEGREE, 1.0, device=device)
-    prep = preprocess(st.params.xyz, st.get_scaling, st.params.rotation,
-                      st.get_opacity[:, 0], st.get_features, st.aux.active,
-                      cam.params(device), sh_degree=SH_DEGREE)
-    return st, prep
+    return preprocess(state.params.xyz, state.get_scaling, state.params.rotation,
+                      state.get_opacity[:, 0], state.get_features, state.aux.active,
+                      cam, sh_degree=sh_degree, active_degree=active_degree)
 
 
-def compare_k1(prep, width, height, label):
-    """raster_fwd vs composite_tiles_plain on the same binned lists."""
+# --- kernels against their plain versions ----------------------------------
+
+def hold(label, got, ref, tol, per_column=False):
+    """Exit unless `got` matches `ref` within `tol`: absolute, or, with
+    per_column, relative to each column's largest |ref| (rows of per-entry
+    or per-splat gradients, whose columns differ in scale by orders of
+    magnitude). Returns max |got - ref|."""
+    import torch
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    diff = (got - ref).abs()
+    abs_err = diff.max().item() if diff.numel() else 0.0
+    scaled = diff / (ref.abs().amax(dim=0, keepdim=True) + 1e-30) if per_column else diff
+    worst = scaled.max().item() if scaled.numel() else 0.0
+    finite = bool(torch.isfinite(got).all())
+    print(f"[compare] {label}: max|err| {abs_err:.3g}"
+          + (f", per column of its max {worst:.3g}" if per_column else "")
+          + f" (limit {tol}), finite {finite}")
+    if not (finite and worst <= tol):
+        fail(f"[compare] {label}: disagrees with its reference")
+    return abs_err
+
+
+def random_cotangent(fb, width, height, seed=1):
+    """A fixed-seed normal cotangent on the image's pixels of the CT
+    channels that carry one, zero on the padded pixels past its edge."""
     import torch
     from gaussmart_tpu_torch.render import raster_tiled as rt
+    ct = torch.zeros((rt.CT,) + tuple(fb.shape[1:]), device=fb.device)
+    rng = np.random.default_rng(seed)
+    ct[:, :height, :width] = torch.tensor(
+        rng.normal(size=(rt.CT, height, width)).astype(np.float32), device=fb.device)
+    return ct
+
+
+def compare_kernels(prep, width, height, label, variants):
+    """raster_fwd, raster_bwd (each (need_dist, need_med) of `variants`)
+    and segsum against their plain versions on one binned frame, and the
+    per-splat gradients under GMT_GRAD_REDUCE=compact vs segsum. Returns
+    ({kernel: max abs err}, the frame's tensors for timing)."""
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    from gaussmart_tpu_torch.render import segsum
     n = prep.depth.shape[0]
     tx, ty = rt.tile_grid(width, height)
     blob = rt.build_blob(prep, torch.zeros(n, 2, device=prep.depth.device),
                          width, height)
     ids, ranges = rt.binning(prep, tx, ty)
-    fb_k, ints_k = rt.composite_tiles(blob, ids, ranges, width, height)
+    print(f"[compare] {label}: {int(ranges[-1, 1])} (splat, tile) pairs")
+    errs = {}
+    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height)
     fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height)
-    if blob.is_cuda:
-        torch.cuda.synchronize()
-    err = (fb_k - fb_p).abs().amax(dim=(1, 2))
-    agree = [(ints_k[i] == ints_p[i]).float().mean().item() for i in range(2)]
-    worst = err.max().item()
-    finite = bool(torch.isfinite(fb_k).all())
-    print(f"[compare] {label}: pairs {int(ranges[-1, 1])}, max|err| per channel "
-          + " ".join(f"{c}={e:.3g}" for c, e in zip(rt.FB_CHANNELS, err.tolist()))
-          + f"; n_contrib equal {agree[0]:.6f}, med_e equal {agree[1]:.6f}")
-    if not (finite and worst <= FLOAT_TOL and min(agree) >= INT_AGREE):
-        raise SystemExit(f"[compare] {label}: kernel disagrees with its plain "
-                         f"version (max err {worst}, int agreement {agree}, "
-                         f"finite {finite}; limits {FLOAT_TOL}, {INT_AGREE})")
-    return worst, (blob, ids, ranges, fb_k, ints_k)
+    errs["raster_fwd"] = hold(f"{label} raster_fwd, 14 float channels", fb, fb_p,
+                              FLOAT_TOL)
+    agree = [(ints[i] == ints_p[i]).float().mean().item() for i in range(2)]
+    print(f"[compare] {label} raster_fwd: n_contrib equal {agree[0]:.6f}, "
+          f"med_e equal {agree[1]:.6f}")
+    if min(agree) < INT_AGREE:
+        fail(f"[compare] {label}: raster_fwd integer planes disagree")
+
+    ct = random_cotangent(fb, width, height)
+    errs["raster_bwd"] = 0.0
+    for need in variants:
+        rows = rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height,
+                                      *need)
+        ref = rt.composite_tiles_bwd_plain(blob, ids, ranges, fb, ints, ct, width,
+                                           height, *need)
+        errs["raster_bwd"] = max(errs["raster_bwd"], hold(
+            f"{label} raster_bwd need_dist/need_med {need}, rows", rows, ref,
+            BWD_TOL, per_column=True))
+    # K5 as grad_reduce calls it: rows sorted by splat id, the unused
+    # entries (id n, the dummy row) left out of the n segments
+    seg, perm = torch.sort(ids, stable=True)
+    rows_sorted = rows[perm].contiguous()
+    out = segsum.segment_sum_sorted(rows_sorted, seg, n)
+    errs["segsum"] = hold(f"{label} segsum", out,
+                          segsum.segment_sum_sorted_plain(rows_sorted, seg, n),
+                          SEGSUM_TOL, per_column=True)
+    grads = {}
+    for mode in ("compact", "segsum"):
+        os.environ["GMT_GRAD_REDUCE"] = mode
+        grads[mode] = rt.grad_reduce(rows, ids, n + 1)
+    del os.environ["GMT_GRAD_REDUCE"]
+    hold(f"{label} grad_blob segsum vs compact", grads["segsum"], grads["compact"],
+         SEGSUM_TOL, per_column=True)
+    return errs, dict(blob=blob, ids=ids, ranges=ranges, fb=fb, ints=ints, ct=ct,
+                      need=variants[-1], rows_sorted=rows_sorted, seg=seg)
 
 
-def card_state() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
-                           "power.limit,temperature.gpu", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60,
-                          check=True).stdout.strip()
+def touch_every_channel(img, am, target):
+    """tests/test_torch_backward.py's loss: every image and allmap channel."""
+    return (((img - target) ** 2).sum() + 0.05 * am[6].sum() + 0.01 * am[0].sum()
+            + 0.01 * (am[2:5] ** 2).sum() + 0.02 * am[5].sum() + 0.01 * am[1].sum())
 
 
-def device_kernel_ms(fn, frames):
-    """Device kernel milliseconds per call of fn and the top kernels by
-    device time, from torch.profiler over `frames` calls; (None, []) when
-    the profiler records no device events."""
+def tiled_vs_dense(device):
+    """The small scene's tiled render (K1) and its gradients (K2 + the
+    reduction) against the dense oracle's forward and autograd."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in events)
-    if not events or total_us <= 0:
-        return None, []
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    return total_us / 1e3 / frames, [(e.key, e.self_device_time_total / 1e3 / frames,
-                                      e.count // frames) for e in top]
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    from gaussmart_tpu_torch.render.raster_dense import rasterize_pixels
+    cam, arrays = small_scene(device)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=device)
+    target = torch.tensor(np.random.default_rng(3).random(
+        (3, cam.height, cam.width)).astype(np.float32), device=device)
+    out = {}
+    for name in ("tiled", "dense"):
+        leaves = {k: v.clone().requires_grad_(k != "quats") for k, v in arrays.items()}
+        means2d = torch.zeros(arrays["xyz"].shape[0], 2, device=device,
+                              requires_grad=True)
+        prep = small_prep(cam, leaves, device)
+        if name == "tiled":
+            r = rt.rasterize_tiled(prep, means2d, bg, cam.width, cam.height)
+        else:
+            r = rasterize_pixels(prep, means2d, bg, cam.width, cam.height, chunk=8)
+        touch_every_channel(r["image"], r["allmap"], target).backward()
+        out[name] = (r["image"].detach(), {k: v.grad for k, v in leaves.items()
+                                           if k != "quats"} | {"means2d": means2d.grad})
+    d_img = hold("small tiled vs dense oracle, image", out["tiled"][0],
+                 out["dense"][0], 6e-3)
+    worst = 0.0
+    for k, g in out["tiled"][1].items():
+        ref = out["dense"][1][k]
+        slack = GRAD_ATOL * ref.abs().max().item() + GRAD_RTOL * ref.abs()
+        worst = max(worst, ((g - ref).abs() / slack).max().item())
+    print(f"[compare] small tiled vs dense oracle, gradients of xyz, scales, "
+          f"opacity, shs, means2d: worst |err| / (atol {GRAD_ATOL} x max|g| + "
+          f"rtol {GRAD_RTOL} x |g|) = {worst:.3g} (limit 1)")
+    if not worst <= 1.0:
+        fail("[compare] tiled gradients disagree with the dense oracle")
+    return d_img
 
+
+# --- the main paths ----------------------------------------------------------
+
+def zero_counts():
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    from gaussmart_tpu_torch.render import segsum
+    rt.launches = rt.bwd_launches = segsum.launches = 0
+
+
+def read_counts():
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    from gaussmart_tpu_torch.render import segsum
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {"raster_fwd": rt.launches, "raster_bwd": rt.bwd_launches,
+            "segsum": segsum.launches}
+
+
+def serve(model, state, device):
+    """render_cli on the trained-model directory, counted; its saved
+    renders against in-memory renders of the same splats."""
+    import torch
+    from gaussmart_tpu_torch import render_cli
+    from gaussmart_tpu_torch.io.images import read_png
+    from gaussmart_tpu_torch.render.api import render
+    zero_counts()
+    t0 = time.perf_counter()
+    ex = render_cli.main(["-m", model, "--skip_mesh", "--device", str(device)])
+    counts = read_counts()
+    cli_s = time.perf_counter() - t0
+    out_dir = os.path.join(model, "train", f"ours_{ITERATION}")
+    renders = [read_png(os.path.join(out_dir, "renders", f"{i:05d}.png"))
+               for i in range(len(ex.viewpoint_stack))]
+    finite = all(bool(torch.isfinite(m).all())
+                 for m in ex.rgbmaps + ex.depthmaps + ex.normalmaps)
+    # what render_cli wrote, against the same cameras rendered from the
+    # splats held in memory (never through the PLY); and the mean alpha of
+    # the splats render_cli loaded back from point_cloud.ply
+    png_err, alpha = [], []
+    with torch.inference_mode():
+        for cam, png in zip(ex.viewpoint_stack, renders):
+            ref = render(cam.params(device), state, ex.bg)["render"]
+            ref = np.clip(ref.permute(1, 2, 0).cpu().numpy() * 255, 0, 255)
+            png_err.append(int(np.abs(png.astype(np.int16)
+                                      - ref.astype(np.uint8)).max()))
+            alpha.append(render(cam.params(device), ex.state, ex.bg)
+                         ["rend_alpha"].mean().item())
+    print(f"[serve] render_cli rendered {len(renders)} views in {cli_s:.2f} s; "
+          f"launches {counts}; renders {renders[0].shape}; finite {finite}; saved "
+          f"render vs in-memory render max|diff| (8-bit levels) {max(png_err)}; "
+          "mean rend_alpha of the loaded splats " + " ".join(f"{a:.3f}" for a in alpha))
+    n_views = len(ex.viewpoint_stack)
+    if not (counts["raster_fwd"] == n_views == len(renders) and finite
+            and counts["raster_bwd"] == counts["segsum"] == 0
+            and all(r.shape == renders[0].shape for r in renders)
+            and max(png_err) <= PNG_TOL and float(np.mean(alpha)) > 0.5):
+        fail("[serve] check failed")
+    return counts
+
+
+def train_cli(src, out, iters, device, losses, extra=()):
+    """gaussmart_tpu_torch.train.main on `src`, counted, with every step's
+    total loss appended to `losses` (the CLI logs only every 10th)."""
+    from gaussmart_tpu_torch import train
+    make = train.make_train_step
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(*args):
+            out_ = step(*args)
+            losses.append(float(out_[3].total))
+            return out_
+        return run
+
+    argv = ["-s", src, "-m", out, "--iterations", str(iters),
+            "--densify_from_iter", "5", "--densification_interval", "10",
+            "--dino_mode", "off", "--no_tensorboard", "--quiet",
+            "--device", str(device), *extra]
+    zero_counts()
+    train.make_train_step = recording
+    t0 = time.perf_counter()
+    try:
+        state, adam = train.main(argv)
+    finally:
+        train.make_train_step = make
+    counts = read_counts()
+    return state, adam, counts, time.perf_counter() - t0
+
+
+def csv_iterations(path):
+    with open(path) as f:
+        return [int(r["iteration"]) for r in csv.DictReader(f)]
+
+
+def train_path(root, seed, n, width, height, device):
+    """The training slice's main path: train, resume, the segsum route."""
+    src, out = os.path.join(root, "train_scene"), os.path.join(root, "trained")
+    t0 = time.perf_counter()
+    write_train_scene(src, seed, n, width, height)
+    print(f"[train] scene: {n} points, {TRAIN_VIEWS} views at {width}x{height} "
+          f"with random targets, written in {time.perf_counter() - t0:.1f} s")
+    it = str(TRAIN_ITERS)
+    losses = []
+    state, adam, counts, secs = train_cli(
+        src, out, TRAIN_ITERS, device, losses,
+        ["--test_iterations", it, "--save_iterations", it,
+         "--checkpoint_iterations", it])
+    densified = sum(1 for i in range(1, TRAIN_ITERS + 1) if i > 5 and i % 10 == 0)
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    files = [f"point_cloud/iteration_{it}/point_cloud.ply", f"chkpnt{it}.npz",
+             f"chkpnt{it}.npz.json", f"eval_{it}.json", "dino_loss_log.csv",
+             "train_stats.csv", "input.ply", "cameras.json", "cfg_args.json"]
+    missing = [f for f in files if not os.path.exists(os.path.join(out, f))]
+    with open(os.path.join(out, f"eval_{it}.json")) as f:
+        ev = json.load(f)
+    print(f"[train] train.main, {TRAIN_ITERS} iterations in {secs:.2f} s: launches "
+          f"{counts}; loss first 5 {first:.5f}, last 5 {last:.5f}; splats "
+          f"{int(state.n_active)} of capacity {state.capacity}; Adam steps "
+          f"{int(adam.step)}; eval {ev}; missing outputs {missing}")
+    if not (counts["raster_bwd"] == TRAIN_ITERS
+            and counts["raster_fwd"] == TRAIN_ITERS + EVAL_RENDERS
+            and counts["segsum"] == 0 and int(adam.step) == TRAIN_ITERS - densified
+            and np.all(np.isfinite(losses)) and len(losses) == TRAIN_ITERS
+            and last < first and not missing
+            and csv_iterations(os.path.join(out, "train_stats.csv")) == [10, 20, 30]):
+        fail("[train] check failed")
+
+    resumed = []
+    state, adam, rcounts, secs = train_cli(
+        src, out, TRAIN_ITERS + RESUME_ITERS, device, resumed,
+        ["--test_iterations", "0", "--start_checkpoint",
+         os.path.join(out, f"chkpnt{it}.npz")])
+    end = TRAIN_ITERS + RESUME_ITERS
+    logged = csv_iterations(os.path.join(out, "dino_loss_log.csv"))
+    print(f"[train] resumed from chkpnt{it}.npz for {RESUME_ITERS} iterations in "
+          f"{secs:.2f} s: launches {rcounts}; losses {resumed}; Adam steps "
+          f"{int(adam.step)}; logged iterations {logged}")
+    if not (rcounts["raster_bwd"] == rcounts["raster_fwd"] == RESUME_ITERS
+            and int(adam.step) == TRAIN_ITERS - densified + RESUME_ITERS
+            and logged == [end] and np.all(np.isfinite(resumed))
+            and os.path.exists(os.path.join(out, "point_cloud", f"iteration_{end}",
+                                            "point_cloud.ply"))):
+        fail("[train] resume check failed")
+
+    seg_losses = []
+    os.environ["GMT_GRAD_REDUCE"] = "segsum"
+    try:
+        _, _, scounts, secs = train_cli(
+            src, os.path.join(root, "trained_segsum"), SEGSUM_ITERS, device,
+            seg_losses, ["--test_iterations", "0"])
+    finally:
+        del os.environ["GMT_GRAD_REDUCE"]
+    print(f"[train] GMT_GRAD_REDUCE=segsum, {SEGSUM_ITERS} iterations in {secs:.2f} s: "
+          f"launches {scounts}; losses {seg_losses}; the same iterations' losses "
+          f"under compact {losses[:SEGSUM_ITERS]}")
+    if not (scounts["segsum"] == scounts["raster_bwd"] == SEGSUM_ITERS
+            and np.all(np.isfinite(seg_losses))):
+        fail("[train] segsum route check failed")
+    return counts, scounts
+
+
+# --- timings -------------------------------------------------------------------
 
 def time_ms(fn, frames, warmup=2):
     """Median milliseconds per call, CUDA events around each call."""
@@ -254,28 +605,221 @@ def time_ms(fn, frames, warmup=2):
     return float(np.median(times))
 
 
-def k1_bound(prep, ids, ranges, fb, ints, width, height):
-    """(bound_ms, bound_by, ops, bytes) of raster_fwd on this run's inputs:
-    each pixel evaluates its tile's entries up to the one that terminates
-    it (n_contrib + 1 where it terminated, mt < T_EPS) or all of them, and
-    blends at most n_contrib entries."""
+def device_kernel_ms(fn, frames):
+    """Device kernel milliseconds per call of fn and every kernel's
+    (name, ms per call, launches per call), most time first, from
+    torch.profiler over `frames` calls; (None, []) when the profiler
+    records no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in events)
+    if not events or total_us <= 0:
+        return None, []
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    return total_us / 1e3 / frames, [(e.key, e.self_device_time_total / 1e3 / frames,
+                                      e.count / frames) for e in ranked]
+
+
+def print_device(label, kernel_ms, top, wall_ms):
+    if kernel_ms is None:
+        print(f"[time] {label}: device kernel time not measured (the profiler "
+              "recorded no device events)")
+        return
+    print(f"[time] {label}: device kernel time {kernel_ms:.4f} ms per call "
+          f"(torch.profiler) = busy share {kernel_ms / wall_ms:.3f}; top: "
+          + "; ".join(f"{name[:60]} {ms:.4f} ms x{calls:g}"
+                      for name, ms, calls in top[:10]))
+
+
+def walk_counts(blob, ids, ranges, fb, ints, width, height):
+    """(K1 evaluations, K2 evaluations, blends) that this frame needs. K1
+    evaluates a pixel's entries up to the one that terminates it
+    (n_contrib + 1 where it terminated, mt < T_EPS) or all of them; K2
+    evaluates those below n_contrib; both blend (forward) or step back
+    (backward) through the entries below n_contrib with alpha > 0 at that
+    pixel, tested with the compositor's own expressions."""
     import torch
     from gaussmart_tpu_torch.render import raster_tiled as rt
     from gaussmart_tpu_torch.render.raster_common import T_EPS
     tx, ty = rt.tile_grid(width, height)
-    counts = (ranges[:, 1] - ranges[:, 0]).to(torch.int64)
-    per_pixel = counts.reshape(ty, 1, tx, 1).expand(ty, rt.TILE, tx, rt.TILE)
-    per_pixel = per_pixel.reshape(ty * rt.TILE, tx * rt.TILE)
-    n_contrib = ints[0].to(torch.int64)
-    ended = fb[rt.FB_CHANNELS.index("mt")] < T_EPS
-    evals = torch.where(ended, torch.minimum(n_contrib + 1, per_pixel), per_pixel)
-    ops = OPS_PER_EVAL * evals.sum().item() + OPS_PER_BLEND * n_contrib.sum().item()
-    n_entries = int(ranges[-1, 1])
-    nbytes = (prep.depth.shape[0] + 1) * rt.F * 4 + n_entries * 4 \
-        + ranges.numel() * 4 + fb.numel() * 4 + ints.numel() * 4
+    n_tiles = tx * ty
+
+    def to_tiles(x):    # [H_pad, W_pad] -> [n_tiles, 256]
+        x = x.reshape(ty, rt.TILE, tx, rt.TILE).permute(0, 2, 1, 3)
+        return x.reshape(n_tiles, rt.TILE * rt.TILE)
+
+    nc = to_tiles(ints[0]).to(torch.int64)
+    ended = to_tiles(fb[rt.FB_CHANNELS.index("mt")]) < T_EPS
+    starts = ranges[:, 0].to(torch.int64)
+    counts = (ranges[:, 1] - ranges[:, 0]).to(torch.int64)[:, None]
+    k1_evals = torch.where(ended, torch.minimum(nc + 1, counts), counts).sum()
+    t = torch.arange(n_tiles, device=blob.device)[:, None]
+    p = torch.arange(rt.TILE * rt.TILE, device=blob.device)[None, :]
+    px = ((t % tx) * rt.TILE + p % rt.TILE).to(torch.float32)
+    py = ((t // tx) * rt.TILE + p // rt.TILE).to(torch.float32)
+    blends = torch.zeros((), dtype=torch.int64, device=blob.device)
+    for e in range(int(nc.max())):
+        slot = torch.clamp(starts + e, 0, ids.shape[0] - 1)
+        r = [c[:, None] for c in blob[ids[slot].to(torch.int64)].unbind(1)]
+        blends += ((e < nc) & (rt._geom_res(r, px, py)["alpha"] > 0)).sum()
+    return int(k1_evals), int(nc.sum()), int(blends)
+
+
+def bound(ops, nbytes):
     t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
-            ops, nbytes)
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def kernel_bounds(io, n_splats, width, height):
+    """{kernel: (bound_ms, bound_by, ops, bytes)} on this frame's inputs,
+    each input read once and each output written once."""
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    blob, ids, ranges, fb, ints = (io[k] for k in ("blob", "ids", "ranges", "fb", "ints"))
+    k1_evals, k2_evals, blends = walk_counts(blob, ids, ranges, fb, ints, width, height)
+    plane = fb.shape[1] * fb.shape[2] * 4
+    inputs = blob.numel() * 4 + ids.numel() * 4 + ranges.numel() * 4
+    rows_bytes = ids.numel() * rt.F * 4
+    k1 = (OPS_PER_EVAL * k1_evals + OPS_PER_BLEND * blends,
+          inputs + (rt.CH + 2) * plane)
+    # K2 reads A, T, M1, M2, n_contrib, med_e and the CT cotangent planes
+    k2 = (OPS_PER_EVAL * k2_evals + (OPS_PER_BWD_STEP + rt.F) * blends,
+          inputs + (4 + 2 + rt.CT) * plane + rows_bytes)
+    # K5 reads the rows and ids of the entries in use and writes a row per
+    # splat
+    live = int((io["seg"] < n_splats).sum())
+    k5 = (live * rt.F, live * (rt.F + 1) * 4 + n_splats * rt.F * 4)
+    print(f"[bound] frame: (entry, pixel) evaluations {k1_evals} in raster_fwd, "
+          f"{k2_evals} below n_contrib in raster_bwd, {blends} of them blended")
+    out = {}
+    for name, (ops, nbytes) in zip(KERNELS, (k1, k2, k5)):
+        out[name] = bound(ops, nbytes) + (ops, nbytes)
+        print(f"[bound] {name}: {ops:.4g} f32 ops, {nbytes:.4g} bytes -> "
+              f"{out[name][0]:.4f} ms, bound by {out[name][1]}")
+    return out
+
+
+def time_serving(state, cam, device, card):
+    """The serving frame (render_arrays) and its stages."""
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    from gaussmart_tpu_torch.render.api import render_arrays
+    zeros = torch.zeros(N_SPLATS, 2, device=device)
+
+    def frame():
+        return render_arrays(
+            cam, xyz=state.params.xyz, scaling=state.get_scaling,
+            rotation=state.params.rotation, opacity=state.get_opacity[:, 0],
+            features=state.get_features, active=state.aux.active,
+            sh_degree=SH_DEGREE, bg_color=torch.zeros(3, device=device))
+
+    with torch.inference_mode():
+        prep = frame_prep(state, cam, SH_DEGREE)
+        prep_ms = time_ms(lambda: frame_prep(state, cam, SH_DEGREE), FRAMES)
+        bin_ms = time_ms(lambda: (rt.build_blob(prep, zeros, WIDTH, HEIGHT),
+                                  rt.binning(prep, *rt.tile_grid(WIDTH, HEIGHT))),
+                         FRAMES)
+        frame_ms = time_ms(frame, FRAMES)
+        kernel_ms, top = device_kernel_ms(frame, FRAMES)
+    print(f"[time] {card}: serving frame {WIDTH}x{HEIGHT}, {N_SPLATS} splats, "
+          f"median of {FRAMES}: preprocess {prep_ms:.4f} ms, build_blob+binning "
+          f"{bin_ms:.4f} ms, render_arrays frame {frame_ms:.4f} ms")
+    print_device("serving frame", kernel_ms, top, frame_ms)
+
+
+def time_training(state, cams, gts, card):
+    """make_train_step on bench.py's state: iterations/s (median step of
+    FRAMES, each step's output feeding the next), the per-stage breakdown
+    by CUDA events, and the device busy share from torch.profiler."""
+    import torch
+    from gaussmart_tpu_torch.config import OptimizationParams
+    from gaussmart_tpu_torch.optim import init_adam
+    from gaussmart_tpu_torch.train_lib import make_train_step
+    stages = ("render", "losses", "backward", "adam")
+    events = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    step = make_train_step(OptimizationParams(), sh_degree=SH_DEGREE,
+                           white_background=False, backend="auto",
+                           spatial_lr_scale=1.0, phase=mark)
+    carry = {"params": state.params, "adam": init_adam(state.params),
+             "aux": state.aux, "it": 1}
+
+    def one():
+        i = carry["it"]
+        p, a, x, _, carry["it"] = step(carry["params"], carry["adam"], carry["aux"],
+                                       cams[i % len(cams)], gts[i % len(cams)], i)
+        carry.update(params=p, adam=a, aux=x)
+
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    wall, split = [], []
+    for _ in range(FRAMES):
+        events.clear()
+        mark("start")
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        split.append([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+    step_ms = float(np.median(wall))
+    parts = np.median(np.array(split), axis=0)
+    print(f"[time] {card}: training step, {N_SPLATS} splats, {TRAIN_VIEWS} cameras "
+          f"at {WIDTH}x{HEIGHT}, default OptimizationParams, median of {FRAMES} steps "
+          f"{step_ms:.4f} ms = {1e3 / step_ms:.4f} iterations/s; by CUDA events: "
+          + ", ".join(f"{s} {ms:.4f} ms" for s, ms in zip(stages, parts)))
+    kernel_ms, top = device_kernel_ms(one, 5)
+    print_device("training step", kernel_ms, top, step_ms)
+    # the backward's own kernels: K2, and index_add_'s scatter (the default
+    # GMT_GRAD_REDUCE=compact reduction)
+    for what, key in (("raster_bwd (K2)", "raster_bwd_kernel"),
+                      ("the index_add_ reduction", "indexFuncLargeIndex")):
+        ms = sum(t for name, t, _ in top if key in name)
+        print(f"[time] training step backward {parts[2]:.4f} ms, of which {what} "
+              f"{ms:.4f} ms device time (torch.profiler)")
+    return 1e3 / step_ms
+
+
+def time_kernels(io, n_splats, width, height):
+    """{kernel: (ms, plain_ms, library_ms)} on one full-width frame."""
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    from gaussmart_tpu_torch.render import segsum
+    blob, ids, ranges, fb, ints, ct = (io[k] for k in
+                                       ("blob", "ids", "ranges", "fb", "ints", "ct"))
+    rows_sorted, seg, need = io["rows_sorted"], io["seg"], io["need"]
+    live = int((seg < n_splats).sum())
+    lengths = torch.bincount(seg[:live], minlength=n_splats)
+    args = (blob, ids, ranges, width, height)
+    bargs = (blob, ids, ranges, fb, ints, ct, width, height) + tuple(need)
+    sargs = (rows_sorted, seg, n_splats)
+    with torch.inference_mode():
+        out = {
+            "raster_fwd": (time_ms(lambda: rt.composite_tiles(*args), FRAMES),
+                           time_ms(lambda: rt.composite_tiles_plain(*args),
+                                   PLAIN_FRAMES, warmup=1), None),
+            "raster_bwd": (time_ms(lambda: rt.composite_tiles_bwd(*bargs), FRAMES),
+                           time_ms(lambda: rt.composite_tiles_bwd_plain(*bargs),
+                                   PLAIN_FRAMES, warmup=1), None),
+            "segsum": (time_ms(lambda: segsum.segment_sum_sorted(*sargs), FRAMES),
+                       time_ms(lambda: segsum.segment_sum_sorted_plain(*sargs), FRAMES),
+                       time_ms(lambda: torch.segment_reduce(
+                           rows_sorted[:live], "sum", lengths=lengths, axis=0),
+                           FRAMES)),
+        }
+    return out
 
 
 def main(argv=None):
@@ -288,12 +832,7 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
-    from gaussmart_tpu_torch import kernels, render_cli
-    from gaussmart_tpu_torch.io.images import read_png
-    from gaussmart_tpu_torch.render import raster_tiled as rt
-    from gaussmart_tpu_torch.render.api import render, render_arrays
-    from gaussmart_tpu_torch.render.raster_common import preprocess
-    from gaussmart_tpu_torch.render.raster_dense import rasterize_pixels
+    from gaussmart_tpu_torch.models.gaussians import state_from_numpy
     from gaussmart_tpu_torch.runtime import setup
     setup()
     dev = torch.device("cuda")
@@ -305,123 +844,63 @@ def main(argv=None):
           f"CUDA {torch.version.cuda}")
 
     # 2. build from the checkout's sources, never from an earlier build
-    kernels.library_path("raster_fwd").unlink(missing_ok=True)
-    t0 = time.perf_counter()
-    log = kernels.build("raster_fwd")
-    print(f"[build] raster_fwd built with nvcc {' '.join(kernels.NVCC_FLAGS)} "
-          f"in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] raster_fwd: {line.strip()}")
+    build_all()
 
     # 3. kernels vs plain versions; tiled vs the dense oracle
-    cam_s, prep_s = small_scene(dev)
-    err_small, _ = compare_k1(prep_s, cam_s.width, cam_s.height, "small 64x32")
-    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
-    zeros = torch.zeros(prep_s.depth.shape[0], 2, device=dev)
-    tiled = rt.rasterize_tiled(prep_s, zeros, bg, cam_s.width, cam_s.height)
-    dense = rasterize_pixels(prep_s, zeros, bg, cam_s.width, cam_s.height, chunk=8)
-    d_img = (tiled["image"] - dense["image"]).abs().max().item()
-    print(f"[compare] small tiled vs dense oracle: image max|err| {d_img:.3g}")
-    if not d_img <= 6e-3:
-        raise SystemExit("[compare] tiled render disagrees with the dense oracle")
+    cam_s, arrays = small_scene(dev)
+    errs, _ = compare_kernels(small_prep(cam_s, arrays, dev), cam_s.width,
+                              cam_s.height, "small 64x32",
+                              [(True, True), (False, False)])
+    tiled_vs_dense(dev)
+    state_t, cams_t, gts_t = bench_state(args.seed, N_SPLATS, WIDTH, HEIGHT, dev)
+    # the training step's frame: camera 0, SH bands above degree 0 masked
+    # (iterations below 1000), no distortion or median terms in K2
+    prep_t = frame_prep(state_t, cams_t[0], SH_DEGREE, active_degree=0)
+    errs_t, io_t = compare_kernels(prep_t, WIDTH, HEIGHT,
+                                   "full 776x584 training frame", [(False, False)])
+    errs = {k: max(errs[k], errs_t[k]) for k in KERNELS}
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        # 4. the serving path
         t0 = time.perf_counter()
         model, cams, params = write_model_dir(root, args.seed, N_SPLATS, WIDTH,
                                               HEIGHT, N_VIEWS)
         print(f"[scene] {N_SPLATS} splats, SH {SH_DEGREE}, {N_VIEWS} views at "
               f"{WIDTH}x{HEIGHT} written in {time.perf_counter() - t0:.1f} s")
-        state, prep_f = full_prep(params, cams[0], dev)
-        err_full, k1_io = compare_k1(prep_f, WIDTH, HEIGHT, "full 776x584 camera 0")
+        state_s = state_from_numpy(params, np.ones(N_SPLATS, bool),
+                                   np.zeros(N_SPLATS, np.int32), SH_DEGREE,
+                                   SH_DEGREE, 1.0, device=dev)
+        e_s, _ = compare_kernels(frame_prep(state_s, cams[0].params(dev), SH_DEGREE),
+                                 WIDTH, HEIGHT, "full 776x584 serving frame",
+                                 [(True, True)])
+        errs = {k: max(errs[k], e_s[k]) for k in KERNELS}
+        serve(model, state_s, dev)
 
-        # 4. the main path, counted
-        rt.launches = 0
-        t0 = time.perf_counter()
-        ex = render_cli.main(["-m", model, "--skip_mesh", "--device", "cuda"])
-        torch.cuda.synchronize()
-        k1_launches = rt.launches
-        cli_s = time.perf_counter() - t0
-        out_dir = os.path.join(model, "train", f"ours_{ITERATION}")
-        renders = [read_png(os.path.join(out_dir, "renders", f"{i:05d}.png"))
-                   for i in range(len(ex.viewpoint_stack))]
-        finite = all(bool(torch.isfinite(m).all())
-                     for m in ex.rgbmaps + ex.depthmaps + ex.normalmaps)
-        # What render_cli wrote, against the same cameras rendered from the
-        # splats held in memory (never through the PLY); and the mean alpha
-        # of the splats render_cli loaded back from point_cloud.ply.
-        png_err, alpha = [], []
-        with torch.inference_mode():
-            for cam, png in zip(ex.viewpoint_stack, renders):
-                ref = render(cam.params(dev), state, ex.bg)["render"]
-                ref = np.clip(ref.permute(1, 2, 0).cpu().numpy() * 255, 0, 255)
-                png_err.append(int(np.abs(png.astype(np.int16)
-                                          - ref.astype(np.uint8)).max()))
-                alpha.append(render(cam.params(dev), ex.state, ex.bg)
-                             ["rend_alpha"].mean().item())
-        print(f"[main path] render_cli rendered {len(renders)} views in "
-              f"{cli_s:.2f} s; raster_fwd launches {k1_launches}; renders "
-              f"{renders[0].shape}; finite {finite}; saved render vs in-memory "
-              f"render max|diff| (8-bit levels) {max(png_err)}; mean rend_alpha "
-              "of the loaded splats " + " ".join(f"{a:.3f}" for a in alpha))
-        if not (k1_launches == N_VIEWS and len(renders) == N_VIEWS and finite
-                and all(r.shape == (HEIGHT, WIDTH, 3) for r in renders)
-                and max(png_err) <= PNG_TOL and float(np.mean(alpha)) > 0.5):
-            raise SystemExit("[main path] check failed")
+        # 5. the training path
+        counts, seg_counts = train_path(root, args.seed, N_SPLATS, WIDTH, HEIGHT, dev)
 
-    # 5. full-width timings on camera 0
-    blob, ids, ranges, fb, ints = k1_io
-    cam0 = cams[0].params(dev)
-    zeros_f = torch.zeros(N_SPLATS, 2, device=dev)
-
-    def prep():
-        return preprocess(state.params.xyz, state.get_scaling, state.params.rotation,
-                          state.get_opacity[:, 0], state.get_features,
-                          state.aux.active, cam0, sh_degree=SH_DEGREE)
-
-    def frame():
-        return render_arrays(
-            cam0, xyz=state.params.xyz, scaling=state.get_scaling,
-            rotation=state.params.rotation, opacity=state.get_opacity[:, 0],
-            features=state.get_features, active=state.aux.active,
-            sh_degree=SH_DEGREE, bg_color=torch.zeros(3, device=dev))
-
-    with torch.inference_mode():
-        k1_ms = time_ms(lambda: rt.composite_tiles(blob, ids, ranges, WIDTH, HEIGHT),
-                        FRAMES)
-        plain_ms = time_ms(lambda: rt.composite_tiles_plain(blob, ids, ranges,
-                                                            WIDTH, HEIGHT), FRAMES)
-        prep_ms = time_ms(prep, FRAMES)
-        bin_ms = time_ms(lambda: (rt.build_blob(prep_f, zeros_f, WIDTH, HEIGHT),
-                                  rt.binning(prep_f, *rt.tile_grid(WIDTH, HEIGHT))),
-                         FRAMES)
-        frame_ms = time_ms(frame, FRAMES)
-        kernel_ms, top = device_kernel_ms(frame, FRAMES)
-    bound_ms, bound_by, ops, nbytes = k1_bound(prep_f, ids, ranges, fb, ints,
-                                               WIDTH, HEIGHT)
-    print(f"[time] {card}: full width {WIDTH}x{HEIGHT}, {N_SPLATS} splats, "
-          f"{int(ranges[-1, 1])} (splat, tile) pairs, median of {FRAMES}: "
-          f"raster_fwd {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, preprocess "
-          f"{prep_ms:.4f} ms, build_blob+binning {bin_ms:.4f} ms, render_arrays "
-          f"frame {frame_ms:.4f} ms")
-    if kernel_ms is None:
-        print("[time] device kernel time per frame: not measured (the profiler "
-              "recorded no device events)")
-    else:
-        print(f"[time] device kernel time per frame {kernel_ms:.4f} ms (torch.profiler, "
-              f"{FRAMES} frames) = {kernel_ms / frame_ms:.3f} of the frame; top: "
-              + "; ".join(f"{name[:60]} {ms:.4f} ms x{calls}" for name, ms, calls in top))
+    # 6. timings
+    time_serving(state_s, cams[0].params(dev), dev, card)
+    ips = time_training(state_t, cams_t, gts_t, card)
+    times = time_kernels(io_t, N_SPLATS, WIDTH, HEIGHT)
+    bounds = kernel_bounds(io_t, N_SPLATS, WIDTH, HEIGHT)
+    print(f"[time] {card}: kernels on the full-width training frame, median of "
+          f"{FRAMES} ({PLAIN_FRAMES} for raster_fwd/raster_bwd's plain versions): "
+          + "; ".join(f"{k} {ms:.4f} ms, plain {p:.4f} ms"
+                      + (f", torch.segment_reduce {lib:.4f} ms" if lib else "")
+                      for k, (ms, p, lib) in times.items()))
     print(f"[time] card during the run: {card_state()}")
-    print(f"[bound] raster_fwd: {ops:.4g} f32 ops, {nbytes:.4g} bytes -> "
-          f"{bound_ms:.4f} ms, bound by {bound_by}")
+    print(f"[result] {card}: {ips:.4f} training iterations/s at {N_SPLATS} splats, "
+          f"{WIDTH}x{HEIGHT}")
 
+    launches = {"raster_fwd": counts["raster_fwd"], "raster_bwd": counts["raster_bwd"],
+                "segsum": seg_counts["segsum"]}
     print(json.dumps({"kernels": [{
-        "name": "raster_fwd", "route": "cuda",
-        "source": "gaussmart_tpu_torch/csrc/raster_fwd.cu",
-        "replaces": "gaussmart_tpu/render/raster_pallas.py:327",
-        "launches": k1_launches, "max_abs_err": max(err_small, err_full),
-        "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}))
+        "name": k, "route": "cuda",
+        "source": f"gaussmart_tpu_torch/csrc/{k}.cu", "replaces": KERNELS[k],
+        "launches": launches[k], "max_abs_err": errs[k],
+        "ms": times[k][0], "plain_ms": times[k][1], "bound_ms": bounds[k][0],
+        "bound_by": bounds[k][1], "library_ms": times[k][2]} for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

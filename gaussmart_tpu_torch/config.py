@@ -6,9 +6,8 @@ a one-letter alias. Saved configs round-trip through ``cfg_args.json`` in
 the same format, so a model directory written by the JAX trainer loads
 unchanged (its ``backend`` may be ``auto``, ``pallas`` or ``dense``).
 
-Only the groups the serving path reads are here; the optimisation group
-comes with the training slice. Keys of other groups in a saved config are
-carried through ``get_combined_args`` untouched.
+Keys a group does not know in a saved config are carried through
+``get_combined_args`` untouched.
 """
 from __future__ import annotations
 
@@ -51,6 +50,36 @@ class PipelineParams:
     # rasterizer: "auto" and "pallas" take the tiled compositor (the CUDA
     # kernel on a CUDA tensor), "dense" the dense one (render/api.py)
     backend: str = "auto"
+    _shorthand = ()
+
+
+@dataclass
+class OptimizationParams:
+    iterations: int = 30_000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    lambda_dist: float = 0.0
+    # linear ramp length of lambda_dist after its iteration-3000 gate
+    # (0: full weight at once)
+    lambda_dist_ramp: int = 0
+    # cap on the raw per-view mean distortion entering the loss (0: none)
+    lambda_dist_clip: float = 0.0
+    lambda_normal: float = 0.05
+    lambda_segment: float = 0.05   # parsed, unused (as in the JAX package)
+    opacity_cull: float = 0.05
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 0.0002
     _shorthand = ()
 
 

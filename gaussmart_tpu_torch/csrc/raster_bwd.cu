@@ -1,0 +1,286 @@
+// raster_bwd: backward tile compositor of the 2DGS surfel rasterizer.
+//
+// Replaces the TPU kernel gaussmart_tpu/render/raster_pallas.py
+// ::_make_bwd_kernel (with_init=False), launched in _core_bwd, with the
+// per-entry geometry VJP of _geom_fwd_res / _geom_manual_bwd. It computes
+// that kernel's semantics, not its TPU layout: the 4-stream (8,128)
+// packing, K=64 DMA chunks, F_PAD=128 rows and the id lane are gone.
+//
+// Shape: one block per 16x16 tile, one thread per pixel (256 threads).
+// The block's walk bound is the largest n_contrib over its pixels (from
+// the forward, raster_fwd.cu), clipped to the tile's entry count; entries
+// past it contributed to no pixel. The tile's entries below the bound are
+// staged in shared memory in reverse batches of 256 rows x 20 floats, and
+// every pixel walks them back to front:
+//   T_before = T_cur / (1 - alpha) through one reciprocal, T_cur starting
+//   at the forward's final T; the suffix S = sum over later entries of
+//   w * dL/dw; TdT = T_final * dT hoisted out of the walk; an entry counts
+//   where contrib = e < n_contrib && alpha > 0; the median term where
+//   e == med_e (NEED_MED) and the distortion terms (NEED_DIST) are
+//   compiled in only when the loss reads those channels.
+// Each pixel's 20 per-field cotangents (T 3x3, centre, shift, opacity,
+// colour, normal) are summed over the block's 256 pixels, warp shuffles
+// then shared memory across the 8 warps, into ONE row per (splat, tile)
+// entry of rows [M', 20]: no atomics, deterministic. Rows of entries past
+// the bound stay as the wrapper zero-filled them. The per-splat reduction
+// is a separate pass (render/raster_tiled.py::grad_reduce), as in the JAX
+// package.
+//
+// What bounds it on the card: operations. Every (walked entry, pixel)
+// pair costs about 50 float32 operations of forward geometry and about 110
+// of cotangents, then 20 five-step shuffle reductions per entry for the
+// block; the bytes are one 80-byte blob row read and one 80-byte gradient
+// row written per walked entry, plus 14+2+11 planes read per pixel. The
+// design keeps the walk in registers and the entries in shared memory, and
+// skips the reduction (an exact shortcut: every field is 0) for entries no
+// pixel of the block contributes to.
+//
+// Rounding: compiled with -fmad=false, expf and IEEE division, with every
+// per-pixel expression in composite_tiles_bwd_plain's order, so the
+// per-pixel values round as the plain version's do; only the order of the
+// 256-pixel sums differs.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int TILE = 16;
+constexpr int THREADS = TILE * TILE;
+constexpr int WARPS = THREADS / 32;
+constexpr int F = 20;          // blob / gradient-row columns
+constexpr float ALPHA_EPS = (float)(1.0 / 255.0);
+constexpr float ALPHA_MAX = 0.99f;
+constexpr float NEAR_PLANE = 0.2f;
+constexpr float FILTER_INV_SQUARE = 2.0f;
+constexpr float MAPPED_SCALE = (float)(100.0 / (100.0 - 0.2));  // FAR/(FAR-NEAR)
+constexpr float FARNEAR = (float)((100.0 * 0.2) / (100.0 - 0.2));
+
+template <bool NEED_DIST, bool NEED_MED>
+__global__ void __launch_bounds__(THREADS)
+raster_bwd_kernel(const float* __restrict__ blob,
+                  const int* __restrict__ entry_ids,
+                  const int* __restrict__ tile_ranges,
+                  const float* __restrict__ fb, const int* __restrict__ ints,
+                  const float* __restrict__ ct, int tiles_x, int h_pad,
+                  int w_pad, float* __restrict__ rows_out) {
+  __shared__ int ids[THREADS];
+  __shared__ float rows[THREADS * F];
+  __shared__ float partial[WARPS][F];
+  __shared__ int s_bound;
+
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int x = (tile % tiles_x) * TILE + tid % TILE;
+  const int y = (tile / tiles_x) * TILE + tid / TILE;
+  const float px = (float)x;
+  const float py = (float)y;
+  const int start = tile_ranges[2 * tile];
+  const int count = tile_ranges[2 * tile + 1] - start;
+
+  const size_t plane = (size_t)h_pad * w_pad;
+  const size_t p = (size_t)y * w_pad + x;
+  const float A_n = fb[4 * plane + p];
+  const float T_final = fb[10 * plane + p];
+  const float M1_n = fb[11 * plane + p];
+  const float M2_n = fb[12 * plane + p];
+  const int n_contrib = ints[p];
+  const int med_e = ints[plane + p];
+  const float dC0 = ct[0 * plane + p], dC1 = ct[1 * plane + p], dC2 = ct[2 * plane + p];
+  const float dD = ct[3 * plane + p], dA = ct[4 * plane + p];
+  const float dN0 = ct[5 * plane + p], dN1 = ct[6 * plane + p], dN2 = ct[7 * plane + p];
+  const float dMed = ct[8 * plane + p], dDist = ct[9 * plane + p];
+  const float dT = ct[10 * plane + p];
+
+  if (tid == 0) s_bound = 0;
+  __syncthreads();
+  atomicMax(&s_bound, n_contrib);
+  __syncthreads();
+  const int bound = min(s_bound, count);
+
+  float T_cur = T_final;
+  float S = 0.0f;
+  const float TdT = T_final * dT;
+
+  for (int hi = bound; hi > 0; hi -= THREADS) {
+    const int lo = max(hi - THREADS, 0);
+    const int n = hi - lo;
+    __syncthreads();
+    if (tid < n) ids[tid] = entry_ids[start + lo + tid];
+    __syncthreads();
+    for (int j = tid; j < n * F; j += THREADS)
+      rows[j] = blob[(size_t)ids[j / F] * F + j % F];
+    __syncthreads();
+
+    for (int e = n - 1; e >= 0; --e) {
+      const int e_rel = lo + e;
+      const float* r = rows + e * F;
+      const float b0 = r[0], b1 = r[1], b2 = r[2], b3 = r[3], b4 = r[4];
+      const float b5 = r[5], b6 = r[6], b7 = r[7], b8 = r[8];
+      const float opacity = r[13];
+      // forward geometry (raster_fwd.cu's expressions)
+      const float pxe = px - r[11];
+      const float pye = py - r[12];
+      const float kx = pxe * b2 - b0;
+      const float ky = pxe * b5 - b3;
+      const float kz = pxe * b8 - b6;
+      const float lx = pye * b2 - b1;
+      const float ly = pye * b5 - b4;
+      const float lz = pye * b8 - b7;
+      const float p_x = ky * lz - kz * ly;
+      const float p_y = kz * lx - kx * lz;
+      const float p_z = kx * ly - ky * lx;
+      const bool degenerate = fabsf(p_z) < 1e-12f;
+      const float inv_pz = degenerate ? 0.0f : 1.0f / p_z;
+      const float u = p_x * inv_pz;
+      const float v = p_y * inv_pz;
+      const float rho3d = degenerate ? INFINITY : u * u + v * v;
+      const float depth3d = u * b2 + v * b5 + b8;
+      const float dxc = r[9] - pxe;
+      const float dyc = r[10] - pye;
+      const float rho2d = FILTER_INV_SQUARE * (dxc * dxc + dyc * dyc);
+      const bool use3d = rho3d <= rho2d;
+      const float depth = use3d ? depth3d : b8;
+      const float g = expf(-0.5f * fminf(rho3d, rho2d));
+      const float a_raw = opacity * g;
+      const float alpha_cl = fminf(a_raw, ALPHA_MAX);
+      const bool ok = alpha_cl >= ALPHA_EPS && depth >= NEAR_PLANE;
+      const float live = (ok && a_raw < ALPHA_MAX) ? 1.0f : 0.0f;
+      const float alpha = ok ? alpha_cl : 0.0f;
+
+      const bool contrib = e_rel < n_contrib && alpha > 0.0f;
+      const bool is_med = med_e == e_rel;
+      const bool grad_any = NEED_MED ? (contrib || is_med) : contrib;
+      // no pixel of the tile takes this entry: T and S are unchanged and
+      // every field is 0, which the zero-filled row already holds
+      if (!__syncthreads_or(grad_any)) continue;
+
+      // reverse compositing step
+      const float alpha_c = contrib ? alpha : 0.0f;
+      const float inv_oma = 1.0f / (1.0f - alpha_c);
+      const float T_before = T_cur * inv_oma;
+      const float w = contrib ? alpha_c * T_before : 0.0f;
+      const float dsafe = contrib ? depth : 1.0f;
+      float dLdw = r[14] * dC0 + r[15] * dC1 + r[16] * dC2 + depth * dD + dA
+                   + r[17] * dN0 + r[18] * dN1 + r[19] * dN2;
+      float m = 0.0f;
+      if (NEED_DIST) {
+        m = contrib ? MAPPED_SCALE * (1.0f - (1.0f / dsafe) * NEAR_PLANE) : 0.0f;
+        dLdw = dLdw + (m * m * A_n + M2_n - 2.0f * m * M1_n) * dDist;
+      }
+      const float dLdalpha = contrib ? T_before * dLdw - (S + TdT) * inv_oma : 0.0f;
+      float dLdd = w * dD;
+      if (NEED_DIST) {
+        const float dm_dd = (1.0f / (dsafe * dsafe)) * FARNEAR;
+        dLdd = dLdd + dDist * 2.0f * w * (m * A_n - M1_n) * dm_dd;
+      }
+      if (NEED_MED) dLdd = dLdd + (is_med ? dMed : 0.0f);
+      dLdd = grad_any ? dLdd : 0.0f;
+
+      // cotangents of (alpha, depth) -> geometry (JAX _geom_manual_bwd),
+      // the cross-product cotangents kept negated
+      const float gop = dLdalpha * g * live;
+      const float crho = -0.5f * opacity * gop;
+      const float u3 = use3d ? 1.0f : 0.0f;
+      const float crho3 = crho * u3;
+      const float crho2 = crho - crho3;
+      const float cdep3 = dLdd * u3;
+      const float cd_b8 = dLdd - cdep3;
+      const float f4x = 2.0f * FILTER_INV_SQUARE * dxc * crho2;
+      const float f4y = 2.0f * FILTER_INV_SQUARE * dyc * crho2;
+      const float cu = 2.0f * u * crho3 + b2 * cdep3;
+      const float cv = 2.0f * v * crho3 + b5 * cdep3;
+      const float ninv_pz = -inv_pz;
+      const float ncpx = cu * ninv_pz;
+      const float ncpy = cv * ninv_pz;
+      const float ncpz = -(u * ncpx + v * ncpy);
+      const float nckx = ly * ncpz - lz * ncpy;
+      const float ncky = lz * ncpx - lx * ncpz;
+      const float nckz = lx * ncpy - ly * ncpx;
+      const float nclx = ncpy * kz - ncpz * ky;
+      const float ncly = ncpz * kx - ncpx * kz;
+      const float nclz = ncpx * ky - ncpy * kx;
+
+      float field[F];
+      field[0] = nckx;
+      field[1] = nclx;
+      field[2] = u * cdep3 - (pxe * nckx + pye * nclx);
+      field[3] = ncky;
+      field[4] = ncly;
+      field[5] = v * cdep3 - (pxe * ncky + pye * ncly);
+      field[6] = nckz;
+      field[7] = nclz;
+      field[8] = cdep3 + cd_b8 - (pxe * nckz + pye * nclz);
+      field[9] = f4x;
+      field[10] = f4y;
+      field[11] = f4x + (nckx * b2 + ncky * b5 + nckz * b8);
+      field[12] = f4y + (nclx * b2 + ncly * b5 + nclz * b8);
+      field[13] = gop;
+      field[14] = w * dC0;
+      field[15] = w * dC1;
+      field[16] = w * dC2;
+      field[17] = w * dN0;
+      field[18] = w * dN1;
+      field[19] = w * dN2;
+
+      S = S + (contrib ? w * dLdw : 0.0f);
+      T_cur = T_before;
+
+      // sum over the tile's pixels: each warp, then the 8 warp sums. The
+      // barrier of the next entry's __syncthreads_or keeps `partial` from
+      // being overwritten before threads 0..F-1 have read it.
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        float s = field[f];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) s = s + __shfl_down_sync(0xffffffffu, s, off);
+        if (lane == 0) partial[warp][f] = s;
+      }
+      __syncthreads();
+      if (tid < F) {
+        float s = 0.0f;
+#pragma unroll
+        for (int k = 0; k < WARPS; ++k) s = s + partial[k][tid];
+        rows_out[(size_t)(start + e_rel) * F + tid] = s;
+      }
+    }
+  }
+}
+
+template <bool NEED_DIST, bool NEED_MED>
+void launch(const void* blob, const void* entry_ids, const void* tile_ranges,
+            const void* fb, const void* ints, const void* ct, int tiles_x,
+            int tiles_y, void* rows, cudaStream_t stream) {
+  raster_bwd_kernel<NEED_DIST, NEED_MED><<<tiles_x * tiles_y, THREADS, 0, stream>>>(
+      (const float*)blob, (const int*)entry_ids, (const int*)tile_ranges,
+      (const float*)fb, (const int*)ints, (const float*)ct, tiles_x,
+      tiles_y * TILE, tiles_x * TILE, (float*)rows);
+}
+
+}  // namespace
+
+// blob [N+1, 20] f32, entry_ids [M'] i32, tile_ranges [tiles, 2] i32 as
+// for raster_fwd; fb [14, h_pad, w_pad] f32 and ints [2, h_pad, w_pad] i32
+// from raster_fwd; ct [11, h_pad, w_pad] f32, the cotangents of fb's
+// channels C0..2 D A N0..2 med dist T; rows [M', 20] f32, zero-filled by
+// the caller, gets one gradient row per walked entry.
+extern "C" int raster_bwd(const void* blob, const void* entry_ids,
+                          const void* tile_ranges, const void* fb,
+                          const void* ints, const void* ct, int tiles_x,
+                          int tiles_y, int need_dist, int need_med, void* rows,
+                          void* stream) {
+  if (tiles_x * tiles_y > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (need_dist && need_med)
+      launch<true, true>(blob, entry_ids, tile_ranges, fb, ints, ct, tiles_x, tiles_y, rows, s);
+    else if (need_dist)
+      launch<true, false>(blob, entry_ids, tile_ranges, fb, ints, ct, tiles_x, tiles_y, rows, s);
+    else if (need_med)
+      launch<false, true>(blob, entry_ids, tile_ranges, fb, ints, ct, tiles_x, tiles_y, rows, s);
+    else
+      launch<false, false>(blob, entry_ids, tile_ranges, fb, ints, ct, tiles_x, tiles_y, rows, s);
+  }
+  return (int)cudaGetLastError();
+}

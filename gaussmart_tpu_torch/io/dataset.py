@@ -5,8 +5,8 @@ Same rules as the JAX package: nerf++ normalization radius, llffhold-8
 eval split, segment-artifact loading, the 1600px auto-downscale rule and
 RGBA->mask splitting. Images are decoded by io/images.py (PNG only) to
 numpy float32 CHW on the host; a resize, where the resolution rule asks
-for one, is a bicubic antialiased torch resample, which is close to but
-not bit-equal with the PIL resize the JAX package uses.
+for one, is a numpy copy of Pillow's default ``Image.resize`` (bicubic,
+fixed point, premultiplied alpha), equal to it to the bit.
 """
 from __future__ import annotations
 
@@ -17,7 +17,6 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from gaussmart_tpu_torch.cameras import Camera, focal2fov, fov2focal, world_to_view
 from gaussmart_tpu_torch.io import colmap
@@ -243,16 +242,85 @@ def compute_resolution(orig_w: int, orig_h: int, resolution: int,
     return int(orig_w / scale), int(orig_h / scale)
 
 
+# Pillow's fixed-point resampling (libImaging/Resample.c): coefficients
+# carry 22 fraction bits so an 8-bit sample times a coefficient sum stays
+# inside int32
+PRECISION_BITS = 32 - 8 - 2
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic kernel, a = -0.5, support 2 (float64)."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _resample_coeffs(in_size: int, out_size: int):
+    """(taps [out, k] source indices, weights [out, k] int64 fixed point):
+    Pillow's precompute_coeffs + normalize_coeffs_8bpc for the full box.
+    The support widens by the downscale factor; each output's weights are
+    normalised to sum 1 in float64, then rounded half away from zero to
+    PRECISION_BITS fraction bits. Taps past an output's window weigh 0."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    # C casts truncate toward zero
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    xlen = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
+    j = np.arange(ksize)
+    w = _bicubic((j[None, :] + xmin[:, None] - center[:, None] + 0.5) / filterscale)
+    w = np.where(j[None, :] < xlen[:, None], w, 0.0)
+    ww = w.sum(axis=1, keepdims=True)
+    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    one = float(1 << PRECISION_BITS)
+    k = np.where(w < 0, (w * one - 0.5).astype(np.int64),
+                 (w * one + 0.5).astype(np.int64))
+    taps = np.minimum(xmin[:, None] + j[None, :], in_size - 1)
+    return taps, k
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One separable pass of Pillow's 8-bit resampler along `axis`:
+    accumulate from 1 << (PRECISION_BITS - 1), then clip8(acc >> bits)."""
+    taps, k = _resample_coeffs(img.shape[axis], out_size)
+    x = np.moveaxis(img.astype(np.int64), axis, 0)
+    acc = np.full((out_size,) + x.shape[1:], 1 << (PRECISION_BITS - 1), np.int64)
+    k = k.reshape(k.shape + (1,) * (x.ndim - 1))
+    for j in range(taps.shape[1]):
+        acc += x[taps[:, j]] * k[:, j]
+    out = np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
 def _resize_u8(img: np.ndarray, w: int, h: int) -> np.ndarray:
-    """uint8 [H,W(,C)] -> uint8 [h,w(,C)]; identity when the size matches."""
+    """uint8 [H,W(,C)] -> uint8 [h,w(,C)], equal to the bit to Pillow's
+    ``Image.fromarray(img).resize((w, h))`` for L, LA, RGB and RGBA
+    (bicubic): horizontal pass, then vertical, each skipped when its size
+    already matches, with a uint8 image between them. LA/RGBA go through
+    premultiplied La/RGBa as Pillow converts them, with its integer
+    rounding both ways. Identity when the size matches."""
     if img.shape[1] == w and img.shape[0] == h:
         return img
-    x = torch.from_numpy(img.astype(np.float32))
-    x = x[None, None] if x.ndim == 2 else x.permute(2, 0, 1)[None]
-    y = torch.nn.functional.interpolate(x, size=(h, w), mode="bicubic",
-                                        align_corners=False, antialias=True)
-    y = y[0, 0] if img.ndim == 2 else y[0].permute(1, 2, 0)
-    return y.round().clamp(0, 255).to(torch.uint8).numpy()
+    alpha = img.ndim == 3 and img.shape[2] in (2, 4)
+    x = img
+    if alpha:
+        a = img[..., -1:].astype(np.int64)
+        t = img[..., :-1].astype(np.int64) * a + 128     # MULDIV255
+        x = np.concatenate([((t >> 8) + t) >> 8, a], axis=-1).astype(np.uint8)
+    if x.shape[1] != w:
+        x = _resample_axis(x, w, 1)
+    if x.shape[0] != h:
+        x = _resample_axis(x, h, 0)
+    if alpha:
+        a = x[..., -1:].astype(np.int64)
+        c = x[..., :-1].astype(np.int64)
+        un = np.clip((255 * c) // np.maximum(a, 1), 0, 255)
+        un = np.where((a == 255) | (a == 0), c, un)
+        x = np.concatenate([un, a], axis=-1).astype(np.uint8)
+    return x
 
 
 def load_camera(info: CameraInfo, resolution: int = -1,

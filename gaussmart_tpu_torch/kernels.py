@@ -68,3 +68,14 @@ def load(name: str, argtypes) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _libs[name] = lib
     return getattr(lib, name)
+
+
+def check_tensors(tensors, device):
+    """Raise unless each (name, tensor, dtype, ndim) is a contiguous
+    tensor of that type and rank on `device`."""
+    for name, x, dtype, ndim in tensors:
+        if x.device != device or x.dtype != dtype or x.dim() != ndim \
+                or not x.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {ndim}-d {dtype} tensor "
+                             f"on {device}, got {x.dtype} {tuple(x.shape)} "
+                             f"on {x.device}")

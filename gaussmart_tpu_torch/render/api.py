@@ -70,8 +70,15 @@ def render_arrays(
     depth_ratio: float = 0.0,
     backend: str = "auto",
     chunk: int = 64,
+    active_degree: Optional[int] = None,
+    need_dist_grad: bool = True,
 ) -> Dict[str, torch.Tensor]:
-    """Render from raw (already activated) arrays."""
+    """Render from raw (already activated) arrays, differentiably: pass
+    `means2d` as a zero leaf that requires grad and its .grad is the
+    screen-space (viewspace) gradient. `active_degree` masks SH bands
+    above it (see preprocess). `need_dist_grad=False` leaves the
+    distortion term out of the tiled backward (valid when the loss ignores
+    rend_dist); the median term is left out when depth_ratio is 0."""
     if backend in _SHARDED:
         raise NotImplementedError(
             f"backend {backend!r} comes with the multi-device slice of the port")
@@ -85,12 +92,14 @@ def render_arrays(
     prep = raster_common.preprocess(
         xyz, scaling, rotation, opacity, features, active, cam,
         sh_degree=sh_degree, scale_modifier=scaling_modifier,
-        override_color=override_color)
+        override_color=override_color, active_degree=active_degree)
     if backend == "dense":
         out = rasterize_pixels(prep, means2d, bg_color, cam.width, cam.height,
                                chunk=chunk)
     else:
-        out = rasterize_tiled(prep, means2d, bg_color, cam.width, cam.height)
+        out = rasterize_tiled(prep, means2d, bg_color, cam.width, cam.height,
+                              need_dist_grad=need_dist_grad,
+                              need_med_grad=(depth_ratio != 0.0))
 
     image, allmap = out["image"], out["allmap"]
 

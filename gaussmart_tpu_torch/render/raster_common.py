@@ -70,7 +70,11 @@ def preprocess(
     sh_degree: int,
     scale_modifier: float = 1.0,
     override_color: Optional[torch.Tensor] = None,
+    active_degree: Optional[int] = None,
 ) -> Preprocessed:
+    """`sh_degree` is the max degree evaluated; `active_degree` (optional)
+    masks the coefficient bands above it to zero, as the JAX package does,
+    so the whole degree schedule evaluates the same bands."""
     W, H = cam.width, cam.height
     N = means3d.shape[0]
     dev = means3d.device
@@ -183,8 +187,14 @@ def preprocess(
     # Color: SH evaluated toward the camera.
     if override_color is None:
         dirs = safe_normalize(means3d - cam.camera_center[None, :])
+        sh_in = shs
+        if active_degree is not None:
+            k = (sh_degree + 1) ** 2
+            bands = torch.floor(torch.sqrt(torch.arange(k, dtype=torch.float64)))
+            mask = (bands <= float(active_degree)).to(shs.dtype).to(shs.device)
+            sh_in = shs * mask[None, :k, None]
         color = torch.clamp_min(
-            eval_sh(sh_degree, shs.transpose(1, 2), dirs) + 0.5, 0.0)
+            eval_sh(sh_degree, sh_in.transpose(1, 2), dirs) + 0.5, 0.0)
     else:
         color = override_color
 

@@ -7,7 +7,9 @@ chunk is rewritten with exclusive cumulative products/sums, with the same
 early-termination rule (the splat that would push T below T_EPS is itself
 excluded) and the same tile-rect cut as the tiled path. It serves
 ``backend="dense"`` and is the oracle of the tiled compositor: it
-composites in exact depth order with no binning.
+composites in exact depth order with no binning. Gradients come from
+autograd through these operations, as the JAX dense path takes them from
+autodiff.
 
 The 7-channel aux map: expected depth, alpha, view-space normal (3),
 median depth, depth distortion.
@@ -179,8 +181,9 @@ def rasterize_pixels(
         "color": prep.color,
         "normal": prep.normal,
         "means2d": means2d,
-        "rx": prep.rx,
-        "ry": prep.ry,
+        # footprint rects only gate membership (the JAX stop_gradient)
+        "rx": prep.rx.detach(),
+        "ry": prep.ry.detach(),
     }
     fields = {k: v[order] for k, v in fields.items()}
 

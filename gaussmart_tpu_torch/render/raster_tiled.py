@@ -1,7 +1,7 @@
 """Tile-binned 2DGS compositor (counterpart of
-gaussmart_tpu/render/raster_pallas.py, forward only).
+gaussmart_tpu/render/raster_pallas.py), forward and backward.
 
-Three stages, the same semantics as the JAX package's tiled path:
+Three forward stages, the same semantics as the JAX package's tiled path:
 
   build_blob      per-splat [N+1, 20] rows: T (3x3, row-major), projected
                   centre, means2d shift in pixels, opacity, colour, normal;
@@ -19,29 +19,43 @@ Three stages, the same semantics as the JAX package's tiled path:
                   csrc/raster_fwd.cu for CUDA tensors, composite_tiles_plain
                   for CPU tensors. A CUDA tensor never takes the plain
                   version.
+
+The backward (RasterCore, a torch.autograd.Function like the JAX custom
+VJP _raster_core) runs K2, composite_tiles_bwd: the reverse walk writes
+one gradient row of the 20 blob fields per (splat, tile) entry, and
+grad_reduce sums the rows per splat (index_add_, or the sorted segment
+sum K5 of render/segsum.py when GMT_GRAD_REDUCE=segsum).
 """
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Dict, Tuple
 
 import torch
 
 from gaussmart_tpu_torch import kernels
+from gaussmart_tpu_torch.render import segsum
 from gaussmart_tpu_torch.render.raster_common import (
-    ALPHA_EPS, ALPHA_MAX, FILTER_INV_SQUARE, NEAR_PLANE, T_EPS, Preprocessed,
-    mapped_depth)
+    ALPHA_EPS, ALPHA_MAX, FAR_PLANE, FILTER_INV_SQUARE, NEAR_PLANE, T_EPS,
+    Preprocessed, mapped_depth)
 
 TILE = 16
 F = 20              # blob columns (see build_blob)
 CH = 14             # float framebuffer channels
 FB_CHANNELS = ("C0", "C1", "C2", "D", "A", "N0", "N1", "N2", "med", "dist",
                "T", "M1", "M2", "mt")
+CT = 11             # channels with cotangents: C0..2 D A N0..2 med dist T
+FARNEAR = (FAR_PLANE * NEAR_PLANE) / (FAR_PLANE - NEAR_PLANE)  # d(mapped)/d(depth) * depth^2
+GRAD_REDUCE_MODES = ("compact", "scatter", "segsum")
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p] * 2)
 
-# K1 launches in this process; chip_smoke.py zeroes it before driving the
-# main path and reads it after
+# K1 and K2 launches in this process; chip_smoke.py zeroes them before
+# driving the main path and reads them after
 launches = 0
+bwd_launches = 0
 
 
 def tile_grid(width: int, height: int) -> Tuple[int, int]:
@@ -114,7 +128,9 @@ def binning(prep: Preprocessed, tiles_x: int, tiles_y: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (entry_ids [M'] int32 splat ids sorted by (tile, depth),
     tile_ranges [tiles_x*tiles_y, 2] int32 (start, end) into entry_ids).
-    M' is the rect pair count; entries past the last range are unused."""
+    M' is the rect pair count; entries past the last range are unused and
+    hold N, the blob's zero row, so the gradient reduction can leave them
+    out."""
     dev = prep.depth.device
     N = prep.depth.shape[0]
     n_tiles = tiles_x * tiles_y
@@ -159,7 +175,8 @@ def binning(prep: Preprocessed, tiles_x: int, tiles_y: int
     key = torch.where(live, (tile << 32) | depth_bits[pair_sid],
                       torch.iinfo(torch.int64).max)
     key, perm = torch.sort(key, stable=True)
-    entry_ids = pair_sid[perm].to(torch.int32)
+    entry_ids = torch.where(key == torch.iinfo(torch.int64).max, N,
+                            pair_sid[perm]).to(torch.int32)
     edges = torch.searchsorted(
         key, torch.arange(n_tiles + 1, device=dev, dtype=torch.int64) << 32)
     tile_ranges = torch.stack([edges[:-1], edges[1:]], dim=1).to(torch.int32)
@@ -198,32 +215,9 @@ def composite_tiles_plain(blob: torch.Tensor, entry_ids: torch.Tensor,
         idx = entry_ids[torch.clamp(starts + e, 0, max(entry_ids.shape[0] - 1, 0))]
         rows = blob[idx.to(torch.int64)]                 # [n_tiles, F]
         r = [rows[:, i:i + 1] for i in range(F)]
-        b = r[:9]
-        pxe = px - r[11]
-        pye = py - r[12]
-        kx = pxe * b[2] - b[0]
-        ky = pxe * b[5] - b[3]
-        kz = pxe * b[8] - b[6]
-        lx = pye * b[2] - b[1]
-        ly = pye * b[5] - b[4]
-        lz = pye * b[8] - b[7]
-        p_x = ky * lz - kz * ly
-        p_y = kz * lx - kx * lz
-        p_z = kx * ly - ky * lx
-        degenerate = torch.abs(p_z) < 1e-12
-        inv_pz = torch.where(degenerate, 0.0, 1.0 / torch.where(degenerate, 1.0, p_z))
-        su = p_x * inv_pz
-        sv = p_y * inv_pz
-        rho3d = torch.where(degenerate, torch.inf, su * su + sv * sv)
-        depth3d = su * b[2] + sv * b[5] + b[8]
-        dx = r[9] - pxe
-        dy = r[10] - pye
-        rho2d = FILTER_INV_SQUARE * (dx * dx + dy * dy)
-        rho = torch.minimum(rho3d, rho2d)
-        depth = torch.where(rho3d <= rho2d, depth3d, b[8])
-        alpha = torch.clamp_max(r[13] * torch.exp(-0.5 * rho), ALPHA_MAX)
-        ok = (alpha >= ALPHA_EPS) & (depth >= NEAR_PLANE) & in_range
-        alpha = torch.where(ok, alpha, 0.0)
+        res = _geom_res(r, px, py)
+        depth = res["depth"]
+        alpha = torch.where(in_range, res["alpha"], 0.0)
 
         alive = ~done
         has_a = alpha > 0
@@ -274,14 +268,9 @@ def composite_tiles(blob: torch.Tensor, entry_ids: torch.Tensor,
     if blob.device.type != "cuda":
         raise ValueError(f"composite_tiles runs on CPU or CUDA tensors, not {blob.device}")
     tiles_x, tiles_y = tile_grid(width, height)
-    for name, x, dtype, ndim in (("blob", blob, torch.float32, 2),
-                                 ("entry_ids", entry_ids, torch.int32, 1),
-                                 ("tile_ranges", tile_ranges, torch.int32, 2)):
-        if x.device != blob.device or x.dtype != dtype or x.dim() != ndim \
-                or not x.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {ndim}-d {dtype} tensor "
-                             f"on {blob.device}, got {x.dtype} {tuple(x.shape)} "
-                             f"on {x.device}")
+    kernels.check_tensors((("blob", blob, torch.float32, 2),
+                           ("entry_ids", entry_ids, torch.int32, 1),
+                           ("tile_ranges", tile_ranges, torch.int32, 2)), blob.device)
     if blob.shape[1] != F or tuple(tile_ranges.shape) != (tiles_x * tiles_y, 2):
         raise ValueError(f"blob {tuple(blob.shape)} must be [N+1, {F}] and "
                          f"tile_ranges {tuple(tile_ranges.shape)} "
@@ -301,15 +290,275 @@ def composite_tiles(blob: torch.Tensor, entry_ids: torch.Tensor,
     return fb, ints
 
 
+def _geom_res(r, px, py):
+    """Forward geometry of one entry per tile (r: the 20 blob columns,
+    [n_tiles, 1] each) over every pixel, keeping what the backward reuses
+    (the JAX _geom_fwd_res). The expressions are K1's."""
+    b = r[:9]
+    pxe = px - r[11]
+    pye = py - r[12]
+    kx = pxe * b[2] - b[0]
+    ky = pxe * b[5] - b[3]
+    kz = pxe * b[8] - b[6]
+    lx = pye * b[2] - b[1]
+    ly = pye * b[5] - b[4]
+    lz = pye * b[8] - b[7]
+    p_x = ky * lz - kz * ly
+    p_y = kz * lx - kx * lz
+    p_z = kx * ly - ky * lx
+    degenerate = torch.abs(p_z) < 1e-12
+    inv_pz = torch.where(degenerate, 0.0, 1.0 / torch.where(degenerate, 1.0, p_z))
+    u = p_x * inv_pz
+    v = p_y * inv_pz
+    rho3d = torch.where(degenerate, torch.inf, u * u + v * v)
+    depth3d = u * b[2] + v * b[5] + b[8]
+    dxc = r[9] - pxe
+    dyc = r[10] - pye
+    rho2d = FILTER_INV_SQUARE * (dxc * dxc + dyc * dyc)
+    use3d = rho3d <= rho2d
+    depth = torch.where(use3d, depth3d, b[8])
+    g = torch.exp(-0.5 * torch.minimum(rho3d, rho2d))
+    a_raw = r[13] * g
+    alpha = torch.clamp_max(a_raw, ALPHA_MAX)
+    ok = (alpha >= ALPHA_EPS) & (depth >= NEAR_PLANE)
+    return dict(b=b, pxe=pxe, pye=pye, kx=kx, ky=ky, kz=kz, lx=lx, ly=ly,
+                lz=lz, inv_pz=inv_pz, u=u, v=v, use3d=use3d, dxc=dxc, dyc=dyc,
+                g=g, live=ok & (a_raw < ALPHA_MAX),
+                alpha=torch.where(ok, alpha, 0.0), depth=depth)
+
+
+def _geom_bwd(res, opacity, ca, cd):
+    """Cotangents of (alpha, depth) -> the 13 geometry fields and opacity
+    (the JAX _geom_manual_bwd, in csrc/raster_bwd.cu's order of
+    operations); the cross-product cotangents are kept negated."""
+    b = res["b"]
+    gop_f = ca * res["g"] * res["live"].to(torch.float32)
+    crho = -0.5 * opacity * gop_f
+    u3 = res["use3d"].to(torch.float32)
+    crho3 = crho * u3
+    crho2 = crho - crho3
+    cdep3 = cd * u3
+    cd_b8 = cd - cdep3
+    f4x = 2.0 * FILTER_INV_SQUARE * res["dxc"] * crho2
+    f4y = 2.0 * FILTER_INV_SQUARE * res["dyc"] * crho2
+    u, v = res["u"], res["v"]
+    cu = 2.0 * u * crho3 + b[2] * cdep3
+    cv = 2.0 * v * crho3 + b[5] * cdep3
+    ninv_pz = -res["inv_pz"]
+    ncpx = cu * ninv_pz
+    ncpy = cv * ninv_pz
+    ncpz = -(u * ncpx + v * ncpy)
+    kx, ky, kz = res["kx"], res["ky"], res["kz"]
+    lx, ly, lz = res["lx"], res["ly"], res["lz"]
+    nckx = ly * ncpz - lz * ncpy
+    ncky = lz * ncpx - lx * ncpz
+    nckz = lx * ncpy - ly * ncpx
+    nclx = ncpy * kz - ncpz * ky
+    ncly = ncpz * kx - ncpx * kz
+    nclz = ncpx * ky - ncpy * kx
+    pxe, pye = res["pxe"], res["pye"]
+    gb2 = u * cdep3 - (pxe * nckx + pye * nclx)
+    gb5 = v * cdep3 - (pxe * ncky + pye * ncly)
+    gb8 = cdep3 + cd_b8 - (pxe * nckz + pye * nclz)
+    gsx = f4x + (nckx * b[2] + ncky * b[5] + nckz * b[8])
+    gsy = f4y + (nclx * b[2] + ncly * b[5] + nclz * b[8])
+    return [nckx, nclx, gb2, ncky, ncly, gb5, nckz, nclz, gb8,
+            f4x, f4y, gsx, gsy, gop_f]
+
+
+def composite_tiles_bwd_plain(blob: torch.Tensor, entry_ids: torch.Tensor,
+                              tile_ranges: torch.Tensor, fb: torch.Tensor,
+                              ints: torch.Tensor, ct: torch.Tensor,
+                              width: int, height: int, need_dist: bool = True,
+                              need_med: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of K2: per (splat, tile) entry, the 20 blob
+    fields' gradients summed over the tile's 256 pixels, [M', 20] (entries
+    no pixel reached stay zero). Vectorised over every tile's pixels, it
+    walks entry positions in reverse from the longest walk bound; the
+    per-pixel expressions are csrc/raster_bwd.cu's (the JAX backward
+    kernel's, raster_pallas.py:608-711).
+
+    fb/ints are K1's outputs, ct the cotangents of the first CT fb
+    channels, all in image layout [C, H_pad, W_pad]."""
+    tiles_x, tiles_y = tile_grid(width, height)
+    n_tiles = tiles_x * tiles_y
+    dev = blob.device
+    rows_out = torch.zeros((entry_ids.shape[0], F), dtype=torch.float32, device=dev)
+
+    def to_tiles(x):    # [C, H_pad, W_pad] -> [C, n_tiles, 256]
+        C = x.shape[0]
+        x = x.reshape(C, tiles_y, TILE, tiles_x, TILE).permute(0, 1, 3, 2, 4)
+        return x.reshape(C, n_tiles, TILE * TILE)
+
+    f = to_tiles(fb)
+    A_n, T_final, M1_n, M2_n = f[4], f[10], f[11], f[12]
+    n_contrib, med_e = to_tiles(ints)
+    dC0, dC1, dC2, dD, dA, dN0, dN1, dN2, dMed, dDist, dT = to_tiles(ct)
+    starts = tile_ranges[:, 0].to(torch.int64)
+    counts = (tile_ranges[:, 1] - tile_ranges[:, 0]).to(torch.int64)
+    bound = torch.minimum(n_contrib.amax(dim=1).to(torch.int64), counts)
+    t = torch.arange(n_tiles, device=dev)[:, None]
+    p = torch.arange(TILE * TILE, device=dev)[None, :]
+    px = ((t % tiles_x) * TILE + p % TILE).to(torch.float32)
+    py = ((t // tiles_x) * TILE + p // TILE).to(torch.float32)
+
+    T_cur = T_final
+    S = torch.zeros_like(T_final)
+    TdT = T_final * dT
+    max_bound = int(bound.max()) if n_tiles else 0
+    for e in range(max_bound - 1, -1, -1):
+        walked = e < bound                               # [n_tiles]
+        slot = torch.clamp(starts + e, 0, max(entry_ids.shape[0] - 1, 0))
+        r = [c[:, None] for c in blob[entry_ids[slot].to(torch.int64)].unbind(1)]
+        res = _geom_res(r, px, py)
+        depth = res["depth"]
+        alpha = torch.where(walked[:, None], res["alpha"], 0.0)
+
+        contrib = (e < n_contrib) & (alpha > 0)
+        is_med = med_e == e
+        grad_any = (contrib | is_med) if need_med else contrib
+        alpha_c = torch.where(contrib, alpha, 0.0)
+        inv_oma = 1.0 / (1.0 - alpha_c)
+        T_before = T_cur * inv_oma
+        w = torch.where(contrib, alpha_c * T_before, 0.0)
+        dsafe = torch.where(contrib, depth, 1.0)
+        dLdw = (r[14] * dC0 + r[15] * dC1 + r[16] * dC2 + depth * dD + dA
+                + r[17] * dN0 + r[18] * dN1 + r[19] * dN2)
+        if need_dist:
+            m = torch.where(contrib, mapped_depth(dsafe), 0.0)
+            dLdw = dLdw + (m * m * A_n + M2_n - 2.0 * m * M1_n) * dDist
+        dLdalpha = torch.where(contrib, T_before * dLdw - (S + TdT) * inv_oma, 0.0)
+        dLdd = w * dD
+        if need_dist:
+            dm_dd = FARNEAR / (dsafe * dsafe)
+            dLdd = dLdd + dDist * 2.0 * w * (m * A_n - M1_n) * dm_dd
+        if need_med:
+            dLdd = dLdd + torch.where(is_med, dMed, 0.0)
+        dLdd = torch.where(grad_any, dLdd, 0.0)
+
+        fields = _geom_bwd(res, r[13], dLdalpha, dLdd)
+        fields += [w * dC0, w * dC1, w * dC2, w * dN0, w * dN1, w * dN2]
+        row = torch.stack([x.sum(dim=1) for x in fields], dim=1)   # [n_tiles, F]
+        rows_out[slot[walked]] = row[walked]
+        S = S + torch.where(contrib, w * dLdw, 0.0)
+        T_cur = T_before
+    return rows_out
+
+
+def composite_tiles_bwd(blob: torch.Tensor, entry_ids: torch.Tensor,
+                        tile_ranges: torch.Tensor, fb: torch.Tensor,
+                        ints: torch.Tensor, ct: torch.Tensor, width: int,
+                        height: int, need_dist: bool = True,
+                        need_med: bool = True) -> torch.Tensor:
+    """K2: per-entry gradient rows [M', 20] f32 (see
+    composite_tiles_bwd_plain). CPU tensors take the plain version. CUDA
+    tensors launch csrc/raster_bwd.cu on the current stream into rows
+    zero-filled here, or raise."""
+    if blob.device.type == "cpu":
+        return composite_tiles_bwd_plain(blob, entry_ids, tile_ranges, fb, ints,
+                                         ct, width, height, need_dist, need_med)
+    if blob.device.type != "cuda":
+        raise ValueError(f"composite_tiles_bwd runs on CPU or CUDA tensors, not {blob.device}")
+    tiles_x, tiles_y = tile_grid(width, height)
+    h_pad, w_pad = tiles_y * TILE, tiles_x * TILE
+    kernels.check_tensors((("blob", blob, torch.float32, 2),
+                           ("entry_ids", entry_ids, torch.int32, 1),
+                           ("tile_ranges", tile_ranges, torch.int32, 2),
+                           ("fb", fb, torch.float32, 3), ("ints", ints, torch.int32, 3),
+                           ("ct", ct, torch.float32, 3)), blob.device)
+    if (blob.shape[1] != F or tuple(tile_ranges.shape) != (tiles_x * tiles_y, 2)
+            or tuple(fb.shape) != (CH, h_pad, w_pad)
+            or tuple(ints.shape) != (2, h_pad, w_pad)
+            or tuple(ct.shape) != (CT, h_pad, w_pad)):
+        raise ValueError(f"shapes blob {tuple(blob.shape)}, tile_ranges "
+                         f"{tuple(tile_ranges.shape)}, fb {tuple(fb.shape)}, ints "
+                         f"{tuple(ints.shape)}, ct {tuple(ct.shape)} do not fit a "
+                         f"{width}x{height} frame")
+    fn = kernels.load("raster_bwd", _BWD_ARGTYPES)
+    rows = torch.zeros((entry_ids.shape[0], F), dtype=torch.float32, device=blob.device)
+    with torch.cuda.device(blob.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(blob.data_ptr(), entry_ids.data_ptr(), tile_ranges.data_ptr(),
+                 fb.data_ptr(), ints.data_ptr(), ct.data_ptr(), tiles_x, tiles_y,
+                 int(need_dist), int(need_med), rows.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"raster_bwd launch failed with CUDA error {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return rows
+
+
+def grad_reduce_mode() -> str:
+    """GMT_GRAD_REDUCE, read on every call: "compact" (default) and
+    "scatter" sum the gradient rows per splat with index_add_ (the JAX
+    package's XLA scatter-add), "segsum" with the sorted segment sum K5.
+    Any other value raises."""
+    mode = os.environ.get("GMT_GRAD_REDUCE", "compact")
+    if mode not in GRAD_REDUCE_MODES:
+        raise ValueError(f"GMT_GRAD_REDUCE={mode!r}: expected one of "
+                         f"{', '.join(GRAD_REDUCE_MODES)}")
+    return mode
+
+
+def grad_reduce(rows: torch.Tensor, entry_ids: torch.Tensor, n_rows: int
+                ) -> torch.Tensor:
+    """Per-splat sums [n_rows, F] of the per-entry gradient rows, the last
+    (dummy) row zeroed (counterpart of the JAX _grad_reduce)."""
+    if grad_reduce_mode() == "segsum":
+        # the unused entries' id, the dummy row, sorts last and is left out
+        # of K5's segments: a single warp would otherwise sum them all
+        seg, perm = torch.sort(entry_ids, stable=True)
+        out = segsum.segment_sum_sorted(rows[perm].contiguous(), seg.contiguous(),
+                                        n_rows - 1)
+        return torch.cat([out, out.new_zeros((1, rows.shape[1]))])
+    out = rows.new_zeros((n_rows, rows.shape[1]))
+    out.index_add_(0, entry_ids.to(torch.int64), rows)
+    out[n_rows - 1] = 0.0
+    return out
+
+
+class RasterCore(torch.autograd.Function):
+    """K1 forward, K2 + grad_reduce backward (the JAX _raster_core custom
+    VJP). Returns (fb, ints); only fb channels C0..2, D, A, N0..2, med, dist
+    and T carry cotangents, M1, M2 and mt none, as in the JAX contract.
+    need_dist/need_med pick a backward that leaves out the distortion and
+    median terms (their cotangents must then be zero)."""
+
+    @staticmethod
+    def forward(ctx, blob, entry_ids, tile_ranges, width, height, need_dist,
+                need_med):
+        fb, ints = composite_tiles(blob, entry_ids, tile_ranges, width, height)
+        ctx.save_for_backward(blob, entry_ids, tile_ranges, fb, ints)
+        ctx.meta = (width, height, need_dist, need_med)
+        ctx.mark_non_differentiable(ints)
+        return fb, ints
+
+    @staticmethod
+    def backward(ctx, g_fb, g_ints):
+        blob, entry_ids, tile_ranges, fb, ints = ctx.saved_tensors
+        width, height, need_dist, need_med = ctx.meta
+        if g_fb is None:
+            return (None,) * 7
+        ct = g_fb[:CT].contiguous()
+        rows = composite_tiles_bwd(blob, entry_ids, tile_ranges, fb, ints, ct,
+                                   width, height, need_dist, need_med)
+        return (grad_reduce(rows, entry_ids, blob.shape[0]),) + (None,) * 6
+
+
 def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,
-                    width: int, height: int) -> Dict[str, torch.Tensor]:
-    """Tiled forward: image [3,H,W], allmap [7,H,W] (expected depth, alpha,
+                    width: int, height: int, need_dist_grad: bool = True,
+                    need_med_grad: bool = True) -> Dict[str, torch.Tensor]:
+    """Tiled render: image [3,H,W], allmap [7,H,W] (expected depth, alpha,
     normal x3, median depth, distortion) and n_dropped, which is always 0
-    because the binning never truncates."""
+    because the binning never truncates. Differentiable through
+    RasterCore; need_dist_grad/need_med_grad=False leave the distortion /
+    median terms out of the backward (valid when the loss reads neither)."""
     tiles_x, tiles_y = tile_grid(width, height)
     blob = build_blob(prep, means2d, width, height)
-    entry_ids, tile_ranges = binning(prep, tiles_x, tiles_y)
-    fb, _ = composite_tiles(blob, entry_ids, tile_ranges, width, height)
+    with torch.no_grad():
+        entry_ids, tile_ranges = binning(prep, tiles_x, tiles_y)
+    fb, _ = RasterCore.apply(blob, entry_ids, tile_ranges, width, height,
+                             need_dist_grad, need_med_grad)
     maps = fb[:, :height, :width]
     image = maps[0:3] + maps[10][None] * bg[:, None, None]
     allmap = maps[[3, 4, 5, 6, 7, 8, 9]]

@@ -1,23 +1,32 @@
 """Scene orchestrator — dataset + cameras + Gaussian state (counterpart of
 gaussmart_tpu/scene.py).
 
-This slice serves trained models, so only the ``load_iteration`` path is
-here: scene-type autodetect, camera lists per resolution scale, and the
-snapshot under point_cloud/iteration_N/. Building a state from the
-scene's point cloud (augmentation + init_from_pcd) is training work.
+Scene-type autodetect, camera lists per resolution scale, the seeded
+camera shuffle and cameras_extent (the nerf++ radius). A new model starts
+from the scene's point cloud (augmented by segment mask areas or
+uniformly, then init_from_pcd) and gets input.ply and cameras.json copied
+into its directory; ``load_iteration`` loads the snapshot under
+point_cloud/iteration_N/ instead.
 """
 from __future__ import annotations
 
+import json
 import os
 import random
+import shutil
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from gaussmart_tpu_torch.cameras import Camera
 from gaussmart_tpu_torch.config import ModelParams
 from gaussmart_tpu_torch.io.dataset import (AUTO_CAP_WIDTH, SceneInfo,
-                                            detect_and_read, load_camera)
+                                            camera_to_json, detect_and_read,
+                                            load_camera)
 from gaussmart_tpu_torch.io.gaussian_ply import load_gaussian_ply, save_gaussian_ply
-from gaussmart_tpu_torch.models.gaussians import GaussianState
+from gaussmart_tpu_torch.models.gaussians import GaussianState, init_from_pcd
+from gaussmart_tpu_torch.semantics.augment import (augment_by_mask_areas,
+                                                   augment_uniform)
 
 
 def search_max_iteration(folder: str) -> int:
@@ -31,24 +40,27 @@ class Scene:
                  shuffle: bool = True, resolution_scales=(1.0,),
                  capacity: Optional[int] = None, seed: int = 0,
                  device="cuda"):
-        if load_iteration is None:
-            raise NotImplementedError(
-                "building a Gaussian state from the scene's point cloud "
-                "(augmentation + init_from_pcd) comes with the training "
-                "slice of the port; pass load_iteration to load a trained "
-                "snapshot")
         self.model_path = args.model_path
         self.args = args
-        if load_iteration == -1:
-            self.loaded_iter = search_max_iteration(
-                os.path.join(self.model_path, "point_cloud"))
-        else:
-            self.loaded_iter = load_iteration
-        print(f"Loading trained model at iteration {self.loaded_iter}")
+        self.loaded_iter = None
+        if load_iteration is not None:
+            if load_iteration == -1:
+                self.loaded_iter = search_max_iteration(
+                    os.path.join(self.model_path, "point_cloud"))
+            else:
+                self.loaded_iter = load_iteration
+            print(f"Loading trained model at iteration {self.loaded_iter}")
 
         info: SceneInfo = detect_and_read(
             args.source_path, args.images, args.white_background, args.eval)
         self.info = info
+
+        if self.loaded_iter is None:
+            os.makedirs(self.model_path, exist_ok=True)
+            shutil.copyfile(info.ply_path, os.path.join(self.model_path, "input.ply"))
+            cams = list(info.test_cameras) + list(info.train_cameras)
+            with open(os.path.join(self.model_path, "cameras.json"), "w") as f:
+                json.dump([camera_to_json(i, c) for i, c in enumerate(cams)], f)
 
         if shuffle:
             rnd = random.Random(seed)
@@ -72,12 +84,29 @@ class Scene:
             self.test_cameras[scale] = [
                 load_camera(c, args.resolution, scale) for c in info.test_cameras]
 
-        self.gaussians = load_gaussian_ply(
-            os.path.join(self.model_path, "point_cloud",
-                         f"iteration_{self.loaded_iter}", "point_cloud.ply"),
-            max_sh_degree=args.sh_degree,
-            spatial_lr_scale=self.cameras_extent,
-            capacity=capacity, device=device)
+        if self.loaded_iter is not None:
+            self.gaussians = load_gaussian_ply(
+                os.path.join(self.model_path, "point_cloud",
+                             f"iteration_{self.loaded_iter}", "point_cloud.ply"),
+                max_sh_degree=args.sh_degree,
+                spatial_lr_scale=self.cameras_extent,
+                capacity=capacity, device=device)
+        else:
+            pcd = info.point_cloud
+            pts, cols, segs = pcd.points, pcd.colors, pcd.segments
+            if pcd.mask_areas:
+                print("Performing mask-area-based augmentation...")
+                pts, cols, segs = augment_by_mask_areas(
+                    pts, cols, segs, pcd.mask_areas, seed=seed)
+            elif args.uniform_upsampling:
+                print("Performing uniform augmentation...")
+                pts, cols = augment_uniform(pts, cols, seed=seed)
+                segs = np.zeros(len(pts), np.int32)
+            print(f"Final point count: {len(pts)}")
+            self.gaussians = init_from_pcd(
+                pts, cols, segs, max_sh_degree=args.sh_degree,
+                spatial_lr_scale=self.cameras_extent, capacity=capacity,
+                seed=seed, device=device)
 
     def save(self, iteration: int, state: Optional[GaussianState] = None):
         state = state if state is not None else self.gaussians

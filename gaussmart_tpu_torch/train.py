@@ -1,0 +1,340 @@
+"""Training CLI — ``python -m gaussmart_tpu_torch.train -s <scene> -m <out> ...``.
+
+The flags, schedule and outputs of gaussmart_tpu/train.py on one device:
+30k iterations, densify every 100 in (500, 15000), opacity reset every
+3000 (and at densify_from_iter on a white background), the SH degree
+raised every 1000, test/save at {7000, 30000}, checkpoints (.npz + .json,
+shared with the JAX package), dino_loss_log.csv and train_stats.csv, plus
+``--device {cuda,cpu}`` (default cuda: no CUDA device is an error, never
+a silent CPU run).
+
+Not in this slice: --n_devices > 1 and --parallel_mode mp (multi-device
+slice), --gui (viewer slice) and --run_segmentation (semantics slice)
+raise before any work. The DINO tower is not ported yet: --dino_mode
+fixed/parity trains without the term, as the JAX trainer does wherever
+the encoder cannot load; in-loop eval reports L1, PSNR and SSIM (LPIPS
+comes with the eval slice). The binning never drops a (splat, tile)
+pair, so there is no duplicate budget to grow and train_stats.csv's
+n_dropped column is always 0.
+"""
+from __future__ import annotations
+
+import csv
+import json
+import os
+import time
+from argparse import ArgumentParser
+from random import Random
+from typing import List, Optional
+
+import torch
+
+from gaussmart_tpu_torch.config import (ModelParams, OptimizationParams,
+                                        PipelineParams, add_group_args,
+                                        extract_group, save_cfg)
+from gaussmart_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from gaussmart_tpu_torch.logging_utils import TensorBoardLogger, profile_trace
+from gaussmart_tpu_torch.models.gaussians import grow_capacity
+from gaussmart_tpu_torch.ops.image import l1_loss, psnr as psnr_fn
+from gaussmart_tpu_torch.ops.ssim import ssim as ssim_fn
+from gaussmart_tpu_torch.optim import AdamState, init_adam
+from gaussmart_tpu_torch.render.api import render
+from gaussmart_tpu_torch.runtime import resolve_device, setup
+from gaussmart_tpu_torch.scene import Scene
+from gaussmart_tpu_torch.train_lib import (make_densify_step, make_train_step,
+                                           reset_opacity)
+
+
+def training(dataset: ModelParams, opt: OptimizationParams,
+             pipe: PipelineParams, testing_iterations: List[int],
+             saving_iterations: List[int], checkpoint_iterations: List[int],
+             start_checkpoint: Optional[str] = None,
+             use_dino_loss: bool = True, lambda_dino: float = 0.05,
+             dino_start_iter: int = 3000, dino_mode: str = "fixed",
+             seed: int = 0, quiet: bool = False,
+             capacity: Optional[int] = None, log_every: int = 10,
+             tensorboard: bool = True, adam_on_densify: str = "drop",
+             device="cuda"):
+    """Train on one device; returns (state, adam)."""
+    os.makedirs(dataset.model_path, exist_ok=True)
+    tb = TensorBoardLogger(dataset.model_path) if tensorboard else None
+    scene = Scene(dataset, capacity=capacity, seed=seed, device=device)
+    state = scene.gaussians
+    adam = init_adam(state.params)
+    first_iter = 0
+    if start_checkpoint:
+        state, adam, first_iter = load_checkpoint(start_checkpoint, device=device)
+        print(f"Resumed from {start_checkpoint} at iteration {first_iter}")
+    if use_dino_loss:
+        print(f"[dino] the DINO tower is not in the port yet; training without "
+              f"the DINO term (--dino_mode {dino_mode})")
+
+    loss_log_path = os.path.join(dataset.model_path, "dino_loss_log.csv")
+    log_fields = ["iteration", "dino_loss", "total_loss", "l1_loss",
+                  "dist_loss", "normal_loss"]
+    stat_log_path = os.path.join(dataset.model_path, "train_stats.csv")
+    stat_fields = ["iteration", "n_points", "n_dropped", "view", "dist_loss"]
+    for path, fields in ((loss_log_path, log_fields), (stat_log_path, stat_fields)):
+        with open(path, "w", newline="") as f:
+            csv.DictWriter(f, fieldnames=fields).writeheader()
+    log_rows: List[dict] = []
+    stat_rows: List[dict] = []
+
+    step = make_train_step(opt, sh_degree=state.max_sh_degree,
+                           white_background=dataset.white_background,
+                           depth_ratio=pipe.depth_ratio, backend=pipe.backend,
+                           spatial_lr_scale=state.spatial_lr_scale,
+                           adam_on_densify=adam_on_densify)
+    densify_step = make_densify_step(opt, extent=scene.cameras_extent)
+    # split noise: drawn on the host from the seed, so a CPU and a CUDA run
+    # of the same scene place the same children
+    gen = torch.Generator().manual_seed(seed)
+
+    train_cams = scene.get_train_cameras()
+    cam_params = [c.params(device) for c in train_cams]
+    gt_images = [torch.as_tensor(c.image, dtype=torch.float32, device=device)
+                 for c in train_cams]
+    rnd = Random(seed)
+    viewpoint_stack: List[int] = []
+
+    def pop_view():
+        nonlocal viewpoint_stack
+        if not viewpoint_stack:
+            viewpoint_stack = list(range(len(train_cams)))
+        return viewpoint_stack.pop(rnd.randint(0, len(viewpoint_stack) - 1))
+
+    params, aux = state.params, state.aux
+    ema = {"loss": 0.0, "dist": 0.0, "normal": 0.0, "dino": 0.0}
+    t_start = time.time()
+
+    for iteration in range(first_iter + 1, opt.iterations + 1):
+        if iteration % 1000 == 0 and state.active_sh_degree < state.max_sh_degree:
+            state = state.oneup_sh_degree()
+
+        idx = pop_view()
+        params, adam, aux, metrics, _ = step(params, adam, aux, cam_params[idx],
+                                             gt_images[idx], iteration)
+
+        if iteration % log_every == 0 or iteration == opt.iterations:
+            m = {k: float(v) for k, v in metrics._asdict().items()}
+            for k, src in (("loss", "total"), ("dist", "dist"), ("normal", "normal"),
+                           ("dino", "dino")):
+                ema[k] = 0.4 * m[src] + 0.6 * ema[k]
+            if not quiet:
+                ips = (iteration - first_iter) / max(time.time() - t_start, 1e-9)
+                print(f"[{iteration}/{opt.iterations}] loss {ema['loss']:.5f} "
+                      f"dist {ema['dist']:.5f} normal {ema['normal']:.5f} "
+                      f"dino {ema['dino']:.5f} pts {int(m['n_active'])} "
+                      f"({ips:.1f} it/s)", flush=True)
+            log_rows.append({"iteration": iteration, "dino_loss": m["dino"],
+                             "total_loss": m["total"], "l1_loss": m["l1"],
+                             "dist_loss": m["dist"], "normal_loss": m["normal"]})
+            stat_rows.append({"iteration": iteration, "n_points": int(m["n_active"]),
+                              "n_dropped": int(m["n_dropped"]), "view": idx,
+                              "dist_loss": m["dist"]})
+            if tb is not None:
+                tb.scalar("train_loss_patches/total_loss", m["total"], iteration)
+                tb.scalar("train_loss_patches/reg_loss", m["l1"], iteration)
+                tb.scalar("train_loss_patches/dist_loss", ema["dist"], iteration)
+                tb.scalar("train_loss_patches/normal_loss", ema["normal"], iteration)
+                tb.scalar("train_loss_patches/dino_loss", ema["dino"], iteration)
+                tb.scalar("total_points", int(m["n_active"]), iteration)
+                tb.scalar("raster/dropped_duplicates", int(m["n_dropped"]), iteration)
+                tb.scalar("iter_time", (time.time() - t_start) / iteration, iteration)
+            if len(log_rows) >= 50:
+                _flush_log(loss_log_path, log_fields, log_rows)
+                _flush_log(stat_log_path, stat_fields, stat_rows)
+
+        if iteration in testing_iterations:
+            state = state.replace(params=params, aux=aux)
+            report_eval(scene, state, pipe, dataset, iteration, tb=tb, device=device)
+
+        if iteration in saving_iterations:
+            print(f"\n[ITER {iteration}] Saving Gaussians")
+            scene.save(iteration, state.replace(params=params, aux=aux))
+
+        if iteration < opt.densify_until_iter:
+            if (iteration > opt.densify_from_iter
+                    and iteration % opt.densification_interval == 0):
+                state = state.replace(params=params, aux=aux)
+                use_size = iteration > opt.opacity_reset_interval
+                state, adam, n_drop = densify_step(state, adam, gen, use_size)
+                if n_drop > 0:
+                    state, adam = _grow(state, adam, n_drop)
+                params, aux = state.params, state.aux
+            if (iteration % opt.opacity_reset_interval == 0
+                    or (dataset.white_background
+                        and iteration == opt.densify_from_iter)):
+                state, adam = reset_opacity(state.replace(params=params, aux=aux), adam)
+                params, aux = state.params, state.aux
+
+        if iteration in checkpoint_iterations:
+            print(f"\n[ITER {iteration}] Saving Checkpoint")
+            state = state.replace(params=params, aux=aux)
+            save_checkpoint(os.path.join(dataset.model_path, f"chkpnt{iteration}.npz"),
+                            state, adam, iteration)
+
+    _flush_log(loss_log_path, log_fields, log_rows)
+    _flush_log(stat_log_path, stat_fields, stat_rows)
+    if tb is not None:
+        tb.close()
+    return state.replace(params=params, aux=aux), adam
+
+
+def _flush_log(path, fields, rows):
+    if rows:
+        with open(path, "a", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=fields)
+            for r in rows:
+                w.writerow(r)
+        rows.clear()
+
+
+def _grow(state, adam: AdamState, dropped: int = 0):
+    """Grow the arena after densify overflowed, in 1.25x steps rounded to
+    capacity/8, covering this pass's dropped splats so one growth
+    suffices. The dropped splats stay lost, as in the JAX package."""
+    cap = state.capacity
+    gran = max(cap // 8, 16)
+    need = int(state.n_active) + int(dropped) + gran
+    new_cap = max(int(cap * 1.25), cap + gran, need)
+    new_cap = -(-new_cap // gran) * gran
+    print(f"[capacity] growing {cap} -> {new_cap}")
+    grown = grow_capacity(state, new_cap)
+    pad = new_cap - cap
+
+    def pad_group(g):
+        return type(g)(**{k: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
+                          for k, v in vars(g).items()})
+    return grown, AdamState(mu=pad_group(adam.mu), nu=pad_group(adam.nu), step=adam.step)
+
+
+@torch.no_grad()
+def report_eval(scene: Scene, state, pipe, dataset, iteration, tb=None,
+                device="cuda"):
+    """In-loop eval of the test cameras and 5 train cameras: mean L1, PSNR
+    and SSIM of the clipped renders, printed and written to
+    eval_<iteration>.json."""
+    configs = [("test", scene.get_test_cameras())]
+    train_cams = scene.get_train_cameras()
+    if train_cams:
+        configs.append(("train", [train_cams[i % len(train_cams)]
+                                  for i in range(5, 30, 5)]))
+    bg = torch.tensor([1.0, 1.0, 1.0] if dataset.white_background else [0.0, 0.0, 0.0],
+                      dtype=torch.float32, device=device)
+    results = {}
+    for name, cams in configs:
+        if not cams:
+            continue
+        tot = {"l1": 0.0, "psnr": 0.0, "ssim": 0.0}
+        for vi, cam in enumerate(cams):
+            pkg = render(cam.params(device), state, bg, depth_ratio=pipe.depth_ratio,
+                         backend=pipe.backend)
+            img = torch.clamp(pkg["render"], 0, 1)
+            gt = torch.clamp(torch.as_tensor(cam.image, device=device), 0, 1)
+            if tb is not None and vi < 5:
+                d = pkg["surf_depth"] / torch.clamp_min(pkg["surf_depth"].max(), 1e-9)
+                prefix = f"{name}_view_{cam.image_name}"
+                tb.image(f"{prefix}/render", img.cpu().numpy(), iteration)
+                tb.image(f"{prefix}/depth", torch.cat([d] * 3).cpu().numpy(), iteration)
+                tb.image(f"{prefix}/rend_normal",
+                         (pkg["rend_normal"] * 0.5 + 0.5).cpu().numpy(), iteration)
+                tb.image(f"{prefix}/rend_alpha",
+                         torch.cat([pkg["rend_alpha"]] * 3).cpu().numpy(), iteration)
+            tot["l1"] += float(l1_loss(img, gt))
+            tot["psnr"] += float(psnr_fn(img[None], gt[None])[0, 0])
+            tot["ssim"] += float(ssim_fn(img, gt))
+        results[name] = {k: v / len(cams) for k, v in tot.items()}
+        if tb is not None:
+            for k, v in results[name].items():
+                tb.scalar(f"{name}/loss_viewpoint - {k}", v, iteration)
+        print(f"\n[ITER {iteration}] Evaluating {name}: "
+              f"L1 {results[name]['l1']:.5f} PSNR {results[name]['psnr']:.3f} "
+              f"SSIM {results[name]['ssim']:.4f}")
+    with open(os.path.join(dataset.model_path, f"eval_{iteration}.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    return results
+
+
+def build_parser() -> ArgumentParser:
+    parser = ArgumentParser(description="gaussmart_tpu_torch training")
+    add_group_args(parser, ModelParams)
+    add_group_args(parser, OptimizationParams)
+    add_group_args(parser, PipelineParams)
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=6009)
+    parser.add_argument("--detect_anomaly", action="store_true")
+    parser.add_argument("--test_iterations", nargs="+", type=int, default=[7000, 30000])
+    parser.add_argument("--save_iterations", nargs="+", type=int, default=[7000, 30000])
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--run_segmentation", action="store_true")
+    parser.add_argument("--segmentation_output", type=str, default="segmentation_results")
+    parser.add_argument("--dataset_type", type=str, choices=["dtu", "nerf", "tyt"],
+                        default="tyt")
+    parser.add_argument("--skip_camera_clustering", action="store_true")
+    parser.add_argument("--sam2", action="store_true")
+    parser.add_argument("--clean", action="store_true")
+    parser.add_argument("--dino_start_iter", type=int, default=3000)
+    parser.add_argument("--lambda_dino", type=float, default=0.05)
+    parser.add_argument("--dino_mode", type=str, default="fixed",
+                        choices=["fixed", "parity", "off"])
+    parser.add_argument("--capacity", type=int, default=None)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler Chrome trace to this dir")
+    parser.add_argument("--no_tensorboard", action="store_true")
+    parser.add_argument("--gui", action="store_true",
+                        help="serve the live viewer during training")
+    parser.add_argument("--n_devices", type=int, default=1,
+                        help="multi-device training over this many devices")
+    parser.add_argument("--parallel_mode", type=str, default="dp", choices=["dp", "mp"])
+    parser.add_argument("--adam_on_densify", type=str, default="drop",
+                        choices=["apply", "drop"],
+                        help="'drop' (default) skips the Adam update on densify "
+                             "iterations, as the reference does")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="where to train (cuda unless asked otherwise)")
+    return parser
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    for flag, on, where in (("--n_devices > 1", args.n_devices > 1, "multi-device"),
+                            ("--parallel_mode mp", args.parallel_mode == "mp",
+                             "multi-device"),
+                            ("--gui", args.gui, "viewer"),
+                            ("--run_segmentation", args.run_segmentation,
+                             "semantics")):
+        if on:
+            raise NotImplementedError(f"{flag} comes with the {where} slice of the port")
+    setup()
+    device = resolve_device(args.device)
+    args.save_iterations.append(args.iterations)
+    print("Optimizing " + args.model_path)
+    if args.detect_anomaly:
+        torch.autograd.set_detect_anomaly(True)
+
+    dataset = extract_group(args, ModelParams)
+    opt = extract_group(args, OptimizationParams)
+    pipe = extract_group(args, PipelineParams)
+    os.makedirs(dataset.model_path, exist_ok=True)
+    save_cfg(dataset.model_path, args)
+
+    with profile_trace(args.profile_dir):
+        out = training(dataset, opt, pipe, args.test_iterations, args.save_iterations,
+                       args.checkpoint_iterations, args.start_checkpoint,
+                       use_dino_loss=(args.dino_mode != "off"),
+                       lambda_dino=args.lambda_dino,
+                       dino_start_iter=args.dino_start_iter,
+                       dino_mode=args.dino_mode, seed=args.seed, quiet=args.quiet,
+                       capacity=args.capacity, tensorboard=not args.no_tensorboard,
+                       adam_on_densify=args.adam_on_densify, device=device)
+    print("\nTraining complete.")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -175,8 +175,29 @@ def test_blender_scene_and_resize_match_jax(tmp_path, rng):
         # full resolution: white-background composite, bit-identical
         np.testing.assert_array_equal(tds.load_camera(ct, resolution=1).image,
                                       jds.load_camera(cj, resolution=1).image)
-        # half resolution: torch bicubic vs PIL bicubic, close but not equal
+        # half resolution: the port's copy of Pillow's resampler, exact
         half_t = tds.load_camera(ct, resolution=2).image
         half_j = jds.load_camera(cj, resolution=2).image
         assert half_t.shape == half_j.shape == (3, 12, 16)
-        assert np.abs(half_t - half_j).mean() < 0.05
+        np.testing.assert_array_equal(half_t, half_j)
+
+    # every resolution rule on random L/RGB/RGBA images of odd sizes, loaded
+    # as COLMAP images (RGBA keeps its own mask): --resolution 2/4/8, an
+    # explicit target width (600) and the automatic cap above 1600 px
+    for mode, ch in (("L", None), ("RGB", 3), ("RGBA", 4)):
+        for size in ((37, 53), (1703, 29)):
+            shape = size[::-1] if ch is None else size[::-1] + (ch,)
+            img = (rng.random(shape) * 256).astype(np.uint8)
+            if ch == 4:
+                img[::3, :, 3] = rng.choice([0, 7, 128, 255], size=img[::3, :, 3].shape)
+            path = str(tmp_path / f"{mode}_{size[0]}.png")
+            Image.fromarray(img, mode).save(path)
+            kw = dict(uid=0, R=np.eye(3), T=np.zeros(3), fovy=0.7, fovx=0.9,
+                      image_path=path, image_name="x", width=size[0], height=size[1])
+            for res in (2, 4, 8, 600, -1):
+                cam_t = tds.load_camera(tds.CameraInfo(**kw), resolution=res)
+                cam_j = jds.load_camera(jds.CameraInfo(**kw), resolution=res)
+                np.testing.assert_array_equal(cam_t.image, cam_j.image,
+                                              err_msg=f"{mode} {size} -r {res}")
+                if ch == 4:
+                    np.testing.assert_array_equal(cam_t.alpha_mask, cam_j.alpha_mask)

@@ -100,8 +100,10 @@ def test_binning_keeps_every_contributing_pair(scene):
         binned |= {(int(i), t) for i in ids[s:e]}
     wanted = _contributing_pairs(prep, width, height)
     assert wanted and wanted <= binned
-    # the rect pairs the conic cut removed composite exactly zero
+    # the rect pairs the conic cut removed composite exactly zero; the
+    # unused slots past the last tile hold the blob's zero row
     assert len(binned) <= int(ranges[-1, 1]) <= ids.shape[0]
+    assert torch.all(ids[int(ranges[-1, 1]):] == prep.depth.shape[0])
 
 
 def test_composite_tiles_on_cpu_is_the_plain_version():
@@ -138,3 +140,86 @@ def test_kernel_matches_plain_on_card(scene):
     assert (ints == ints_p).float().mean().item() >= 0.999
     with pytest.raises(ValueError, match="entry_ids"):
         rt.composite_tiles(blob, ids.long(), ranges, width, height)
+
+
+def _random_cotangent(fb, seed=1):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.normal(size=(rt.CT,) + tuple(fb.shape[1:])).astype(np.float32),
+                        device=fb.device)
+
+
+def test_backward_and_segsum_on_cpu_are_the_plain_versions():
+    from gaussmart_tpu_torch.render import segsum
+    prep, width, height = _prep("ragged")
+    blob, ids, ranges = _binned(prep, width, height)
+    fb, ints = rt.composite_tiles_plain(blob, ids, ranges, width, height)
+    ct = _random_cotangent(fb)
+    before = (rt.bwd_launches, segsum.launches)
+    rows = rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height)
+    assert torch.equal(rows, rt.composite_tiles_bwd_plain(blob, ids, ranges, fb, ints,
+                                                          ct, width, height))
+    seg, perm = torch.sort(ids, stable=True)
+    out = segsum.segment_sum_sorted(rows[perm], seg, blob.shape[0])
+    assert torch.equal(out, segsum.segment_sum_sorted_plain(rows[perm], seg, blob.shape[0]))
+    assert (rt.bwd_launches, segsum.launches) == before
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        rt.composite_tiles_bwd(blob.to("meta"), ids, ranges, fb, ints, ct, width, height)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        segsum.segment_sum_sorted(rows.to("meta"), seg, blob.shape[0])
+
+
+def _column_err(got, ref):
+    """max over columns of max|got - ref| / max|ref| in that column."""
+    scale = ref.abs().amax(dim=0) + 1e-30
+    return ((got - ref).abs().amax(dim=0) / scale).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", list(SCENES))
+@pytest.mark.parametrize("need", [(True, True), (False, False)])
+def test_backward_kernel_matches_plain_on_card(scene, need):
+    """raster_bwd against composite_tiles_bwd_plain on the same forward
+    outputs and a random cotangent. Per-pixel values round the same way;
+    only the order of each entry's 256-pixel sum differs, so every column
+    agrees within 1e-4 of its largest value (chip_smoke.py holds its
+    frames to 1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: raster_bwd runs only on the card")
+    prep, width, height = _prep(scene, device="cuda")
+    blob, ids, ranges = _binned(prep, width, height)
+    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height)
+    ct = _random_cotangent(fb)
+    before = rt.bwd_launches
+    rows = rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height, *need)
+    assert rt.bwd_launches == before + 1
+    ref = rt.composite_tiles_bwd_plain(blob, ids, ranges, fb, ints, ct, width, height,
+                                       *need)
+    torch.cuda.synchronize()
+    assert _column_err(rows, ref) <= 1e-4
+    with pytest.raises(ValueError, match="ct"):
+        rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct[:3], width, height)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_seg,max_count", [(1, 3000), (1000, 9), (50_000, 30)])
+def test_segsum_kernel_matches_plain_on_card(n_seg, max_count):
+    """segsum against its plain version (index_add_): per column within
+    1e-5 of the column's largest value (sums of up to 3000 rows, each
+    segment's in row order against atomics in any order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: segsum runs only on the card")
+    from gaussmart_tpu_torch.render import segsum
+    rng = np.random.default_rng(n_seg)
+    counts = rng.integers(0, max_count + 1, n_seg)
+    ids = torch.tensor(np.repeat(np.arange(n_seg), counts), dtype=torch.int32,
+                       device="cuda")
+    rows = torch.tensor(rng.standard_normal((ids.shape[0], 20)).astype(np.float32),
+                        device="cuda")
+    before = segsum.launches
+    out = segsum.segment_sum_sorted(rows, ids, n_seg)
+    assert segsum.launches == before + 1
+    ref = segsum.segment_sum_sorted_plain(rows, ids, n_seg)
+    torch.cuda.synchronize()
+    assert out.shape == (n_seg, 20) and _column_err(out, ref) <= 1e-5
+    with pytest.raises(ValueError, match="seg_ids"):
+        segsum.segment_sum_sorted(rows, ids.long(), n_seg)

@@ -125,15 +125,20 @@ def test_cli_renders_match_jax_extractor(tmp_path):
 
 def test_port_imports_no_jax(tmp_path):
     """Importing every module of the port and chip_smoke.py, and running
-    the CLI, leaves neither jax nor gaussmart_tpu in sys.modules."""
-    model, _ = _model_dir(str(tmp_path), n=40)
+    the render CLI and the train CLI, leaves neither jax nor gaussmart_tpu
+    in sys.modules."""
+    model, cfg = _model_dir(str(tmp_path), n=40)
+    src, out = cfg["source_path"], str(tmp_path / "trained")
     code = f"""
 import importlib, pkgutil, sys
 import gaussmart_tpu_torch, chip_smoke
 for m in pkgutil.walk_packages(gaussmart_tpu_torch.__path__, "gaussmart_tpu_torch."):
     importlib.import_module(m.name)
-from gaussmart_tpu_torch import render_cli
+from gaussmart_tpu_torch import render_cli, train
 render_cli.main(["-m", {model!r}, "--skip_mesh", "--device", "cpu", "--skip_test"])
+train.main(["-s", {src!r}, "-m", {out!r}, "--sh_degree", "1", "--iterations", "3",
+            "--test_iterations", "3", "--device", "cpu", "--no_tensorboard", "--quiet",
+            "--capacity", "256", "--dino_mode", "off"])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gaussmart_tpu"))
 assert not bad, bad
 print("CLEAN")
@@ -145,6 +150,8 @@ print("CLEAN")
     assert "CLEAN" in res.stdout
     assert os.path.exists(os.path.join(model, "train", f"ours_{ITER}", "renders",
                                        "00002.png"))
+    assert os.path.exists(os.path.join(out, "point_cloud", "iteration_3", "point_cloud.ply"))
+    assert os.path.exists(os.path.join(out, "eval_3.json"))
 
 
 def test_cli_refuses_what_this_slice_does_not_serve(tmp_path, monkeypatch):
@@ -154,8 +161,25 @@ def test_cli_refuses_what_this_slice_does_not_serve(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="multi-device"):
         render_cli.main(["-m", model, "--skip_mesh", "--device", "cpu",
                          "--n_devices", "2"])
-    with pytest.raises(NotImplementedError, match="training slice"):
-        Scene(ModelParams(source_path=cfg["source_path"], model_path=model))
+    # a new model starts from the scene's point cloud as in the JAX package:
+    # the same initial params and aux, camera order and extent, and copies
+    jdir, tdir = str(tmp_path / "jax_new"), str(tmp_path / "port_new")
+    js = JScene(JModelParams(source_path=cfg["source_path"], model_path=jdir,
+                             white_background=True, sh_degree=1, eval=True), seed=4)
+    ts = Scene(ModelParams(source_path=cfg["source_path"], model_path=tdir,
+                           white_background=True, sh_degree=1, eval=True), seed=4,
+               device="cpu")
+    assert ts.loaded_iter is None and ts.cameras_extent == js.cameras_extent
+    for split in ("get_train_cameras", "get_test_cameras"):
+        assert ([c.image_name for c in getattr(ts, split)()]
+                == [c.image_name for c in getattr(js, split)()])
+    for k, v in vars(js.gaussians.params).items():
+        np.testing.assert_array_equal(getattr(ts.gaussians.params, k).numpy(), np.asarray(v))
+    for k, v in vars(js.gaussians.aux).items():
+        np.testing.assert_array_equal(getattr(ts.gaussians.aux, k).numpy(), np.asarray(v))
+    for name in ("input.ply", "cameras.json"):
+        with open(os.path.join(jdir, name), "rb") as a, open(os.path.join(tdir, name), "rb") as b:
+            assert a.read() == b.read(), name
     # no --device cpu and no CUDA: an error, never a silent CPU run
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
