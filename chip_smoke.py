@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one CUDA
-card and check them.
+"""Drive the PyTorch/CUDA port's serving and training paths, on one device
+and over device slots, on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -12,24 +12,35 @@ Phases, each printing its own lines; any failure exits non-zero:
      raster_fwd (K1), raster_bwd (K2) with a fixed-seed cotangent, segsum
      (K5) on K2's rows, and the per-splat gradients under
      GMT_GRAD_REDUCE=compact vs segsum, at the tests' small scene and at
-     full width; the tiled render and its gradients against the dense
-     oracle on the small scene;
+     full width; raster_fwd_seeded (K3) and raster_bwd_seeded (K4) on the
+     second of N_SLOTS depth strata of each frame, seeded as the
+     Gaussian-sharded fold seeds it, and on the training frame's first
+     from the identity seed (pass 1); the tiled render and its gradients
+     against the dense oracle on the small scene;
   4. the serving path: a trained-model directory (100k splats, SH degree 3,
      8 views at 776x584, made from --seed) rendered by
      gaussmart_tpu_torch.render_cli, its saved renders held against
-     in-memory renders of the same splats;
+     in-memory renders of the same splats; then rendered again with
+     --n_devices N_SLOTS --shard_mode gaussian (N_SLOTS slots on the one
+     card: depth strata through K3), held against the single-device
+     renders; and a row-sharded render of the small scene;
   5. the training path: a COLMAP scene (4 views at 776x584 with random
      targets, bench.py's 100k-point cloud) trained by
      gaussmart_tpu_torch.train.main for TRAIN_ITERS iterations (densify,
      eval, save and checkpoint on the way), resumed from its checkpoint
      for RESUME_ITERS more, then trained SEGSUM_ITERS iterations under
-     GMT_GRAD_REDUCE=segsum;
+     GMT_GRAD_REDUCE=segsum; then the same schedule Gaussian-sharded
+     (--n_devices N_SLOTS --parallel_mode mp: K3/K4) with its resume, and
+     DP_ITERS camera data-parallel iterations (--n_devices N_SLOTS);
   6. timings with CUDA events (median over FRAMES calls after warm-up):
-     the serving frame, the training step on bench.py's mid-training state
-     (iterations/s, per-stage breakdown, device busy share from
-     torch.profiler), and each kernel, its plain version and the library
-     call that computes the same function; each kernel's bound from this
-     run's inputs.
+     the serving frame, single-device and Gaussian-sharded, the training
+     step on bench.py's mid-training state, single-device and
+     Gaussian-sharded over N_SLOTS slots (iterations/s, per-stage
+     breakdown, device busy share from torch.profiler), and each kernel,
+     its plain version and the library call that computes the same
+     function; each kernel's bound from this run's inputs.
+N_SLOTS slots on one card measure the cost of the two-pass fold, not
+scaling across cards.
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after. The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -54,14 +65,20 @@ WIDTH, HEIGHT, N_SPLATS, SH_DEGREE, N_VIEWS = 776, 584, 100_000, 3, 8
 FOVX, FOVY = 1.2, 0.9
 ITERATION = 30000
 TRAIN_VIEWS = 4           # bench.py's 4 cameras
-TRAIN_ITERS, RESUME_ITERS, SEGSUM_ITERS = 30, 2, 5
+TRAIN_ITERS, RESUME_ITERS, SEGSUM_ITERS, DP_ITERS = 30, 2, 5, 3
+N_SLOTS = 4               # device slots of the multi-device paths, all on the card
 EVAL_RENDERS = 5          # train.report_eval: 5 train views, no test split
 FRAMES = 20               # timed calls per measurement (median)
 PLAIN_FRAMES = 3          # the plain versions take seconds per call
-# kernel -> the TPU kernel it replaces (csrc/<kernel>.cu holds each)
-KERNELS = {"raster_fwd": "gaussmart_tpu/render/raster_pallas.py:327",
-           "raster_bwd": "gaussmart_tpu/render/raster_pallas.py:499",
-           "segsum": "gaussmart_tpu/render/segsum_pallas.py:59"}
+# kernel -> (its source csrc/<source>.cu, the TPU kernel it replaces); the
+# seeded kernels K3 and K4 are the with_init=True variants of the Pallas
+# kernels that K1 and K2 replace, and share their sources
+KERNELS = {"raster_fwd": ("raster_fwd", "gaussmart_tpu/render/raster_pallas.py:327"),
+           "raster_bwd": ("raster_bwd", "gaussmart_tpu/render/raster_pallas.py:499"),
+           "segsum": ("segsum", "gaussmart_tpu/render/segsum_pallas.py:59"),
+           "raster_fwd_seeded": ("raster_fwd", "gaussmart_tpu/render/raster_pallas.py:327"),
+           "raster_bwd_seeded": ("raster_bwd", "gaussmart_tpu/render/raster_pallas.py:499")}
+SOURCES = ("raster_fwd", "raster_bwd", "segsum")
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -73,12 +90,19 @@ PEAK_F32_FLOPS = 67e12
 OPS_PER_EVAL = 50
 OPS_PER_BLEND = 39
 OPS_PER_BWD_STEP = 103
+# K4's step adds the mapped depth m (4 operations) and dm/dd (3), m dM1 +
+# m^2 dM2 into dL/dw (5) and (dM1 + 2 m dM2) w dm/dd into dL/dd (6); each
+# pixel then takes its seed gradient (S + T dT) / max(T0, 1e-12) (3)
+OPS_PER_SEEDED_BWD_STEP = OPS_PER_BWD_STEP + 18
+OPS_PER_SEED_GRAD = 3
 FLOAT_TOL = 1e-4          # K1 vs plain, every float channel
 INT_AGREE = 0.999         # K1 vs plain, n_contrib / med_e pixel share
 BWD_TOL = 1e-5            # K2 vs plain, per column, of the column's max |value|
 SEGSUM_TOL = 1e-5         # K5 vs plain and compact vs segsum, likewise
 GRAD_ATOL, GRAD_RTOL = 3e-3, 2e-2   # tiled vs dense gradients (x max |g|)
 PNG_TOL = 1               # saved render vs in-memory render, 8-bit levels
+SHARDED_TOL = 5e-4        # Gaussian-sharded vs single-device renders (test_parallel.py)
+ROW_TOL = 1e-5            # row-sharded vs single-device dense render
 
 
 def card_line() -> str:
@@ -110,8 +134,8 @@ def build_all():
         log = kernels.build(name)
         return name, time.perf_counter() - t0, log
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        for name, dt, log in pool.map(one, KERNELS):
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        for name, dt, log in pool.map(one, SOURCES):
             print(f"[build] {name} built with nvcc {' '.join(kernels.NVCC_FLAGS)} "
                   f"in {dt:.2f} s")
             for line in log.splitlines():
@@ -314,15 +338,15 @@ def hold(label, got, ref, tol, per_column=False):
     return abs_err
 
 
-def random_cotangent(fb, width, height, seed=1):
-    """A fixed-seed normal cotangent on the image's pixels of the CT
-    channels that carry one, zero on the padded pixels past its edge."""
+def random_cotangent(fb, width, height, channels, seed=1):
+    """A fixed-seed normal cotangent on the image's pixels of the first
+    `channels` channels (those that carry one: CT, or CT_SEEDED for the
+    seeded core), zero on the padded pixels past its edge."""
     import torch
-    from gaussmart_tpu_torch.render import raster_tiled as rt
-    ct = torch.zeros((rt.CT,) + tuple(fb.shape[1:]), device=fb.device)
+    ct = torch.zeros((channels,) + tuple(fb.shape[1:]), device=fb.device)
     rng = np.random.default_rng(seed)
     ct[:, :height, :width] = torch.tensor(
-        rng.normal(size=(rt.CT, height, width)).astype(np.float32), device=fb.device)
+        rng.normal(size=(channels, height, width)).astype(np.float32), device=fb.device)
     return ct
 
 
@@ -351,7 +375,7 @@ def compare_kernels(prep, width, height, label, variants):
     if min(agree) < INT_AGREE:
         fail(f"[compare] {label}: raster_fwd integer planes disagree")
 
-    ct = random_cotangent(fb, width, height)
+    ct = random_cotangent(fb, width, height, rt.CT)
     errs["raster_bwd"] = 0.0
     for need in variants:
         rows = rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height,
@@ -378,6 +402,91 @@ def compare_kernels(prep, width, height, label, variants):
          SEGSUM_TOL, per_column=True)
     return errs, dict(blob=blob, ids=ids, ranges=ranges, fb=fb, ints=ints, ct=ct,
                       need=variants[-1], rows_sorted=rows_sorted, seg=seg)
+
+
+def seeded_stratum(prep, width, height, k):
+    """Stratum k of N_SLOTS depth strata of `prep`, cut as
+    render_gaussian_sharded cuts them (a stable depth sort), and its seed
+    as pass 2 gets it from pass 1 and the fold: the nearer strata
+    composited from the identity seed (K1), T zeroed where that walk
+    terminated, the identity past the image's edge (for k = 0, the
+    identity: every stratum's seed in pass 1). Returns (the stratum's
+    prep, init [3, H_pad, W_pad])."""
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    from gaussmart_tpu_torch.render.raster_common import T_EPS, Preprocessed
+    order = torch.argsort(torch.where(prep.valid, prep.depth, torch.inf), stable=True)
+    per = -(-order.shape[0] // N_SLOTS)
+
+    def rows(lo, hi):
+        return Preprocessed(*(x[order[lo:hi]] for x in prep))
+    near, stratum = rows(0, k * per), rows(k * per, (k + 1) * per)
+    tx, ty = rt.tile_grid(width, height)
+    if k == 0:
+        init = torch.zeros((3, ty * rt.TILE, tx * rt.TILE), device=prep.depth.device)
+        init[0] = 1.0
+        return stratum, init
+    zeros = torch.zeros(near.depth.shape[0], 2, device=prep.depth.device)
+    blob = rt.build_blob(near, zeros, width, height)
+    fb, _ = rt.composite_tiles(blob, *rt.binning(near, tx, ty), width, height)
+    ch = rt.FB_CHANNELS.index
+    init = torch.stack([torch.where(fb[ch("mt")] < T_EPS, 0.0, fb[ch("T")]),
+                        fb[ch("M1")], fb[ch("M2")]])
+    init[:, height:] = 0.0
+    init[:, :, width:] = 0.0
+    init[0, height:] = 1.0
+    init[0, :, width:] = 1.0
+    return stratum, init.contiguous()
+
+
+def compare_seeded(prep, width, height, label, variants, k=1):
+    """raster_fwd_seeded (K3) and raster_bwd_seeded (K4, each (need_dist,
+    need_med) of `variants`, rows and seed gradient) against their plain
+    versions on depth stratum k of N_SLOTS of a frame, seeded as
+    seeded_stratum says: k = 1 is pass 2's stratum seeded by the nearest,
+    k = 0 pass 1's from the identity seed. (On the full-width frames the
+    nearest quarter of the splats already ends most covered pixels, so
+    pass 2 past stratum 1 blends almost nothing.) Returns ({kernel: max
+    abs err}, the stratum's tensors for timing)."""
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    stratum, init = seeded_stratum(prep, width, height, k)
+    n = stratum.depth.shape[0]
+    blob = rt.build_blob(stratum, torch.zeros(n, 2, device=prep.depth.device),
+                         width, height)
+    ids, ranges = rt.binning(stratum, *rt.tile_grid(width, height))
+    t0 = init[0, :height, :width]
+    label = f"{label}, stratum {k + 1} of {N_SLOTS}"
+    print(f"[compare] {label}: {n} splats, "
+          f"{int(ranges[-1, 1])} (splat, tile) pairs; seed T0 mean "
+          f"{t0.mean().item():.4f}, zero (terminated nearer) at "
+          f"{(t0 == 0).float().mean().item():.4f} of the pixels")
+    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height, init=init)
+    fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height, init=init)
+    errs = {"raster_fwd_seeded": hold(f"{label} raster_fwd_seeded, 14 float channels",
+                                      fb, fb_p, FLOAT_TOL)}
+    agree = [(ints[i] == ints_p[i]).float().mean().item() for i in range(2)]
+    print(f"[compare] {label} raster_fwd_seeded: n_contrib equal {agree[0]:.6f}, "
+          f"med_e equal {agree[1]:.6f}")
+    if min(agree) < INT_AGREE:
+        fail(f"[compare] {label}: raster_fwd_seeded integer planes disagree")
+
+    ct = random_cotangent(fb, width, height, rt.CT_SEEDED)
+    errs["raster_bwd_seeded"] = 0.0
+    for need in variants:
+        rows, gi = rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height,
+                                          *need, init=init)
+        ref, gi_p = rt.composite_tiles_bwd_plain(blob, ids, ranges, fb, ints, ct, width,
+                                                 height, *need, init=init)
+        errs["raster_bwd_seeded"] = max(
+            errs["raster_bwd_seeded"],
+            hold(f"{label} raster_bwd_seeded need_dist/need_med {need}, rows", rows, ref,
+                 BWD_TOL, per_column=True),
+            # one column per seed channel: T0, M1_0, M2_0
+            hold(f"{label} raster_bwd_seeded need_dist/need_med {need}, seed gradient",
+                 gi.reshape(3, -1).T, gi_p.reshape(3, -1).T, BWD_TOL, per_column=True))
+    return errs, dict(blob=blob, ids=ids, ranges=ranges, fb=fb, ints=ints, ct=ct,
+                      init=init, need=variants[-1])
 
 
 def touch_every_channel(img, am, target):
@@ -430,6 +539,7 @@ def zero_counts():
     from gaussmart_tpu_torch.render import raster_tiled as rt
     from gaussmart_tpu_torch.render import segsum
     rt.launches = rt.bwd_launches = segsum.launches = 0
+    rt.seeded_launches = rt.seeded_bwd_launches = 0
 
 
 def read_counts():
@@ -439,7 +549,14 @@ def read_counts():
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return {"raster_fwd": rt.launches, "raster_bwd": rt.bwd_launches,
-            "segsum": segsum.launches}
+            "segsum": segsum.launches, "raster_fwd_seeded": rt.seeded_launches,
+            "raster_bwd_seeded": rt.seeded_bwd_launches}
+
+
+def only(counts, **want):
+    """Whether the kernels named in `want` launched that often and every
+    other kernel not at all."""
+    return all(n == want.get(k, 0) for k, n in counts.items())
 
 
 def serve(model, state, device):
@@ -476,40 +593,100 @@ def serve(model, state, device):
           f"render vs in-memory render max|diff| (8-bit levels) {max(png_err)}; "
           "mean rend_alpha of the loaded splats " + " ".join(f"{a:.3f}" for a in alpha))
     n_views = len(ex.viewpoint_stack)
-    if not (counts["raster_fwd"] == n_views == len(renders) and finite
-            and counts["raster_bwd"] == counts["segsum"] == 0
+    if not (only(counts, raster_fwd=n_views) and n_views == len(renders) and finite
             and all(r.shape == renders[0].shape for r in renders)
             and max(png_err) <= PNG_TOL and float(np.mean(alpha)) > 0.5):
         fail("[serve] check failed")
-    return counts
+    return counts, ex
+
+
+def serve_sharded(model, ex_single, device):
+    """render_cli --n_devices N_SLOTS --shard_mode gaussian on the same
+    model, counted: every view is 2 passes of N_SLOTS strata through K3;
+    its renders against the single-device renders."""
+    import torch
+    from gaussmart_tpu_torch import render_cli
+    zero_counts()
+    t0 = time.perf_counter()
+    ex = render_cli.main(["-m", model, "--skip_mesh", "--device", str(device),
+                          "--n_devices", str(N_SLOTS), "--shard_mode", "gaussian"])
+    counts = read_counts()
+    secs = time.perf_counter() - t0
+    n_views = len(ex.viewpoint_stack)
+    err = max((a - b).abs().max().item() for a, b in zip(ex.rgbmaps, ex_single.rgbmaps))
+    finite = all(bool(torch.isfinite(m).all()) for m in ex.rgbmaps + ex.depthmaps)
+    print(f"[serve] render_cli --n_devices {N_SLOTS} --shard_mode gaussian rendered "
+          f"{n_views} views in {secs:.2f} s; launches {counts}; renders vs the "
+          f"single-device renders max|diff| {err:.3g} (limit {SHARDED_TOL}); finite {finite}")
+    if not (only(counts, raster_fwd_seeded=2 * N_SLOTS * n_views)
+            and n_views == len(ex_single.rgbmaps) and finite and err <= SHARDED_TOL):
+        fail("[serve] Gaussian-sharded check failed")
+
+
+def row_sharded_render(device):
+    """render() with the row_sharded backend over N_SLOTS slots on the
+    small scene at 64x30 (30 rows: not a multiple of the slots, so they
+    are padded and cropped), counted (the dense compositor: no kernel),
+    against the single-device dense render."""
+    import torch
+    from gaussmart_tpu_torch.cameras import Camera
+    from gaussmart_tpu_torch.parallel.sharding import make_mesh
+    from gaussmart_tpu_torch.render.api import render_arrays
+    _, a = small_scene(device)
+    cam = Camera(uid=0, colmap_id=0, image_name="t", R=np.eye(3), T=np.zeros(3),
+                 fovx=0.8, fovy=0.8, width=64, height=30).params(device)
+    n = a["xyz"].shape[0]
+    kw = dict(xyz=a["xyz"], scaling=a["scales"], rotation=a["quats"],
+              opacity=a["opacity"], features=a["shs"],
+              active=torch.ones(n, dtype=torch.bool, device=device), sh_degree=0,
+              bg_color=torch.tensor([0.1, 0.2, 0.3], device=device), chunk=8)
+    mesh = make_mesh(N_SLOTS, device)
+    with torch.inference_mode():
+        ref = render_arrays(cam, backend="dense", **kw)
+        zero_counts()
+        out = render_arrays(cam, backend="row_sharded", mesh=mesh, **kw)
+        counts = read_counts()
+    err = max((out[k] - ref[k]).abs().max().item()
+              for k in ("render", "rend_alpha", "rend_normal", "surf_depth"))
+    print(f"[serve] row_sharded render over {N_SLOTS} slots, 64x30: launches {counts}; "
+          f"render, alpha, normal, depth vs the single-device dense render max|diff| "
+          f"{err:.3g} (limit {ROW_TOL}); shape {tuple(out['render'].shape)}")
+    if not (only(counts) and err <= ROW_TOL and out["render"].shape == (3, 30, 64)):
+        fail("[serve] row-sharded check failed")
 
 
 def train_cli(src, out, iters, device, losses, extra=()):
     """gaussmart_tpu_torch.train.main on `src`, counted, with every step's
-    total loss appended to `losses` (the CLI logs only every 10th)."""
+    total loss appended to `losses` (the CLI logs only every 10th), on one
+    device or over slots (its step makers are wrapped)."""
     from gaussmart_tpu_torch import train
-    make = train.make_train_step
+    makers = {name: getattr(train, name) for name in
+              ("make_train_step", "make_dp_train_step", "make_mp_train_step")}
 
-    def recording(*a, **kw):
-        step = make(*a, **kw)
+    def recording(make):
+        def wrapped(*a, **kw):
+            step = make(*a, **kw)
 
-        def run(*args):
-            out_ = step(*args)
-            losses.append(float(out_[3].total))
-            return out_
-        return run
+            def run(*args):
+                out_ = step(*args)
+                losses.append(float(out_[3].total))
+                return out_
+            return run
+        return wrapped
 
     argv = ["-s", src, "-m", out, "--iterations", str(iters),
             "--densify_from_iter", "5", "--densification_interval", "10",
             "--dino_mode", "off", "--no_tensorboard", "--quiet",
             "--device", str(device), *extra]
     zero_counts()
-    train.make_train_step = recording
+    for name, make in makers.items():
+        setattr(train, name, recording(make))
     t0 = time.perf_counter()
     try:
         state, adam = train.main(argv)
     finally:
-        train.make_train_step = make
+        for name, make in makers.items():
+            setattr(train, name, make)
     counts = read_counts()
     return state, adam, counts, time.perf_counter() - t0
 
@@ -544,9 +721,8 @@ def train_path(root, seed, n, width, height, device):
           f"{counts}; loss first 5 {first:.5f}, last 5 {last:.5f}; splats "
           f"{int(state.n_active)} of capacity {state.capacity}; Adam steps "
           f"{int(adam.step)}; eval {ev}; missing outputs {missing}")
-    if not (counts["raster_bwd"] == TRAIN_ITERS
-            and counts["raster_fwd"] == TRAIN_ITERS + EVAL_RENDERS
-            and counts["segsum"] == 0 and int(adam.step) == TRAIN_ITERS - densified
+    if not (only(counts, raster_fwd=TRAIN_ITERS + EVAL_RENDERS, raster_bwd=TRAIN_ITERS)
+            and int(adam.step) == TRAIN_ITERS - densified
             and np.all(np.isfinite(losses)) and len(losses) == TRAIN_ITERS
             and last < first and not missing
             and csv_iterations(os.path.join(out, "train_stats.csv")) == [10, 20, 30]):
@@ -562,7 +738,7 @@ def train_path(root, seed, n, width, height, device):
     print(f"[train] resumed from chkpnt{it}.npz for {RESUME_ITERS} iterations in "
           f"{secs:.2f} s: launches {rcounts}; losses {resumed}; Adam steps "
           f"{int(adam.step)}; logged iterations {logged}")
-    if not (rcounts["raster_bwd"] == rcounts["raster_fwd"] == RESUME_ITERS
+    if not (only(rcounts, raster_fwd=RESUME_ITERS, raster_bwd=RESUME_ITERS)
             and int(adam.step) == TRAIN_ITERS - densified + RESUME_ITERS
             and logged == [end] and np.all(np.isfinite(resumed))
             and os.path.exists(os.path.join(out, "point_cloud", f"iteration_{end}",
@@ -580,10 +756,76 @@ def train_path(root, seed, n, width, height, device):
     print(f"[train] GMT_GRAD_REDUCE=segsum, {SEGSUM_ITERS} iterations in {secs:.2f} s: "
           f"launches {scounts}; losses {seg_losses}; the same iterations' losses "
           f"under compact {losses[:SEGSUM_ITERS]}")
-    if not (scounts["segsum"] == scounts["raster_bwd"] == SEGSUM_ITERS
-            and np.all(np.isfinite(seg_losses))):
+    if not (only(scounts, raster_fwd=SEGSUM_ITERS, raster_bwd=SEGSUM_ITERS,
+                 segsum=SEGSUM_ITERS) and np.all(np.isfinite(seg_losses))):
         fail("[train] segsum route check failed")
-    return counts, scounts
+    return counts, scounts, losses
+
+
+def train_slots_path(root, device, single_losses):
+    """The multi-device training paths on the phase-5 scene: train.main
+    --n_devices N_SLOTS --parallel_mode mp on the single-device run's
+    schedule (every frame 2 passes of N_SLOTS strata through K3 and K4;
+    densify, sharded eval, save and checkpoint from the gathered state),
+    its resume, and DP_ITERS camera data-parallel iterations."""
+    src, out = os.path.join(root, "train_scene"), os.path.join(root, "trained_mp")
+    it = str(TRAIN_ITERS)
+    slots = ["--n_devices", str(N_SLOTS)]
+    per_frame = 2 * N_SLOTS
+    losses = []
+    state, adam, counts, secs = train_cli(
+        src, out, TRAIN_ITERS, device, losses,
+        slots + ["--parallel_mode", "mp", "--test_iterations", it, "--save_iterations",
+                 it, "--checkpoint_iterations", it])
+    densified = sum(1 for i in range(1, TRAIN_ITERS + 1) if i > 5 and i % 10 == 0)
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    files = [f"point_cloud/iteration_{it}/point_cloud.ply", f"chkpnt{it}.npz",
+             f"eval_{it}.json", "dino_loss_log.csv", "train_stats.csv"]
+    missing = [f for f in files if not os.path.exists(os.path.join(out, f))]
+    with open(os.path.join(out, f"eval_{it}.json")) as f:
+        ev = json.load(f)
+    print(f"[train] train.main --n_devices {N_SLOTS} --parallel_mode mp, {TRAIN_ITERS} "
+          f"iterations in {secs:.2f} s: launches {counts}; loss first 5 {first:.5f}, "
+          f"last 5 {last:.5f}; the first step's loss {losses[0]:.6f} (single-device "
+          f"{single_losses[0]:.6f}); splats {int(state.n_active)} of capacity "
+          f"{state.capacity}; Adam steps {int(adam.step)}; eval {ev}; missing "
+          f"outputs {missing}")
+    if not (only(counts, raster_fwd_seeded=per_frame * (TRAIN_ITERS + EVAL_RENDERS),
+                 raster_bwd_seeded=per_frame * TRAIN_ITERS)
+            and int(adam.step) == TRAIN_ITERS - densified
+            and np.all(np.isfinite(losses)) and len(losses) == TRAIN_ITERS
+            and last < first and not missing and state.capacity % N_SLOTS == 0
+            and abs(losses[0] - single_losses[0]) <= 1e-3 * single_losses[0]):
+        fail("[train] Gaussian-sharded check failed")
+
+    resumed = []
+    state, adam, rcounts, secs = train_cli(
+        src, out, TRAIN_ITERS + RESUME_ITERS, device, resumed,
+        slots + ["--parallel_mode", "mp", "--test_iterations", "0", "--start_checkpoint",
+                 os.path.join(out, f"chkpnt{it}.npz")])
+    end = TRAIN_ITERS + RESUME_ITERS
+    print(f"[train] Gaussian-sharded resume from chkpnt{it}.npz for {RESUME_ITERS} "
+          f"iterations in {secs:.2f} s: launches {rcounts}; losses {resumed}; Adam "
+          f"steps {int(adam.step)}")
+    if not (only(rcounts, raster_fwd_seeded=per_frame * RESUME_ITERS,
+                 raster_bwd_seeded=per_frame * RESUME_ITERS)
+            and int(adam.step) == TRAIN_ITERS - densified + RESUME_ITERS
+            and np.all(np.isfinite(resumed))
+            and os.path.exists(os.path.join(out, "point_cloud", f"iteration_{end}",
+                                            "point_cloud.ply"))):
+        fail("[train] Gaussian-sharded resume check failed")
+
+    dp_losses = []
+    _, adam, dcounts, secs = train_cli(src, os.path.join(root, "trained_dp"), DP_ITERS,
+                                       device, dp_losses, slots + ["--test_iterations", "0"])
+    print(f"[train] train.main --n_devices {N_SLOTS} (camera data-parallel), {DP_ITERS} "
+          f"iterations of {N_SLOTS} views in {secs:.2f} s: launches {dcounts}; losses "
+          f"{dp_losses}; Adam steps {int(adam.step)}")
+    if not (only(dcounts, raster_fwd=N_SLOTS * DP_ITERS, raster_bwd=N_SLOTS * DP_ITERS)
+            and int(adam.step) == DP_ITERS and len(dp_losses) == DP_ITERS
+            and np.all(np.isfinite(dp_losses))):
+        fail("[train] data-parallel check failed")
+    return counts
 
 
 # --- timings -------------------------------------------------------------------
@@ -698,27 +940,59 @@ def kernel_bounds(io, n_splats, width, height):
     k5 = (live * rt.F, live * (rt.F + 1) * 4 + n_splats * rt.F * 4)
     print(f"[bound] frame: (entry, pixel) evaluations {k1_evals} in raster_fwd, "
           f"{k2_evals} below n_contrib in raster_bwd, {blends} of them blended")
+    return report_bounds(("raster_fwd", "raster_bwd", "segsum"), (k1, k2, k5))
+
+
+def report_bounds(names, works):
     out = {}
-    for name, (ops, nbytes) in zip(KERNELS, (k1, k2, k5)):
+    for name, (ops, nbytes) in zip(names, works):
         out[name] = bound(ops, nbytes) + (ops, nbytes)
         print(f"[bound] {name}: {ops:.4g} f32 ops, {nbytes:.4g} bytes -> "
               f"{out[name][0]:.4f} ms, bound by {out[name][1]}")
     return out
 
 
+def seeded_bounds(io, width, height):
+    """{kernel: (bound_ms, bound_by, ops, bytes)} of K3 and K4 on the seeded
+    stratum: K1's and K2's counts on its walk, plus the seed read (K3, K4),
+    the two moment cotangent planes, K4's seeded terms per step and the
+    seed gradient written per pixel."""
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    blob, ids, ranges, fb, ints = (io[k] for k in ("blob", "ids", "ranges", "fb", "ints"))
+    k3_evals, k4_evals, blends = walk_counts(blob, ids, ranges, fb, ints, width, height)
+    pixels = fb.shape[1] * fb.shape[2]
+    plane = pixels * 4
+    inputs = blob.numel() * 4 + ids.numel() * 4 + ranges.numel() * 4
+    k3 = (OPS_PER_EVAL * k3_evals + OPS_PER_BLEND * blends,
+          inputs + 3 * plane + (rt.CH + 2) * plane)
+    # K4 reads A, T, M1, M2, n_contrib, med_e, the CT_SEEDED cotangent
+    # planes and the seed, and writes the rows and the seed gradient
+    k4 = (OPS_PER_EVAL * k4_evals + (OPS_PER_SEEDED_BWD_STEP + rt.F) * blends
+          + OPS_PER_SEED_GRAD * pixels,
+          inputs + (4 + 2 + rt.CT_SEEDED + 3) * plane + ids.numel() * rt.F * 4
+          + 3 * plane)
+    print(f"[bound] seeded stratum: (entry, pixel) evaluations {k3_evals} in "
+          f"raster_fwd_seeded, {k4_evals} below n_contrib in raster_bwd_seeded, "
+          f"{blends} of them blended")
+    return report_bounds(("raster_fwd_seeded", "raster_bwd_seeded"), (k3, k4))
+
+
 def time_serving(state, cam, device, card):
-    """The serving frame (render_arrays) and its stages."""
+    """The serving frame (render_arrays) and its stages; then the
+    Gaussian-sharded frame over N_SLOTS slots."""
     import torch
+    from gaussmart_tpu_torch.parallel.sharding import make_mesh
     from gaussmart_tpu_torch.render import raster_tiled as rt
     from gaussmart_tpu_torch.render.api import render_arrays
     zeros = torch.zeros(N_SPLATS, 2, device=device)
+    mesh = make_mesh(N_SLOTS, device)
 
-    def frame():
+    def frame(**kw):
         return render_arrays(
             cam, xyz=state.params.xyz, scaling=state.get_scaling,
             rotation=state.params.rotation, opacity=state.get_opacity[:, 0],
             features=state.get_features, active=state.aux.active,
-            sh_degree=SH_DEGREE, bg_color=torch.zeros(3, device=device))
+            sh_degree=SH_DEGREE, bg_color=torch.zeros(3, device=device), **kw)
 
     with torch.inference_mode():
         prep = frame_prep(state, cam, SH_DEGREE)
@@ -733,14 +1007,27 @@ def time_serving(state, cam, device, card):
           f"{bin_ms:.4f} ms, render_arrays frame {frame_ms:.4f} ms")
     print_device("serving frame", kernel_ms, top, frame_ms)
 
+    def sharded():
+        return frame(backend="gaussian_sharded_pallas", mesh=mesh)
+    with torch.inference_mode():
+        sharded_ms = time_ms(sharded, FRAMES)
+        kernel_ms, top = device_kernel_ms(sharded, FRAMES)
+    print(f"[time] {card}: Gaussian-sharded serving frame over {N_SLOTS} slots on one "
+          f"card, {WIDTH}x{HEIGHT}, {N_SPLATS} splats, median of {FRAMES}: "
+          f"{sharded_ms:.4f} ms (single-device {frame_ms:.4f} ms)")
+    print_device("Gaussian-sharded serving frame", kernel_ms, top, sharded_ms)
 
-def time_training(state, cams, gts, card):
-    """make_train_step on bench.py's state: iterations/s (median step of
-    FRAMES, each step's output feeding the next), the per-stage breakdown
-    by CUDA events, and the device busy share from torch.profiler."""
+
+def time_training(state, cams, gts, card, mesh=None):
+    """make_train_step on bench.py's state, or with `mesh`
+    make_mp_train_step (gaussian_sharded_pallas) on its per-slot chunks:
+    iterations/s (median step of FRAMES, each step's output feeding the
+    next), the per-stage breakdown by CUDA events, and the device busy
+    share from torch.profiler."""
     import torch
     from gaussmart_tpu_torch.config import OptimizationParams
     from gaussmart_tpu_torch.optim import init_adam
+    from gaussmart_tpu_torch.parallel.sharding import make_mp_train_step, shard_state
     from gaussmart_tpu_torch.train_lib import make_train_step
     stages = ("render", "losses", "backward", "adam")
     events = []
@@ -750,11 +1037,19 @@ def time_training(state, cams, gts, card):
         ev.record()
         events.append(ev)
 
-    step = make_train_step(OptimizationParams(), sh_degree=SH_DEGREE,
-                           white_background=False, backend="auto",
-                           spatial_lr_scale=1.0, phase=mark)
-    carry = {"params": state.params, "adam": init_adam(state.params),
-             "aux": state.aux, "it": 1}
+    kw = dict(sh_degree=SH_DEGREE, white_background=False, spatial_lr_scale=1.0,
+              phase=mark)
+    if mesh is None:
+        step = make_train_step(OptimizationParams(), backend="auto", **kw)
+        params, adam, aux = state.params, init_adam(state.params), state.aux
+        what = "training step"
+    else:
+        step = make_mp_train_step(OptimizationParams(), mesh,
+                                  backend="gaussian_sharded_pallas", **kw)
+        params, adam, aux = shard_state(state.params, init_adam(state.params), state.aux,
+                                        mesh)
+        what = f"Gaussian-sharded training step over {mesh.size} slots on one card"
+    carry = {"params": params, "adam": adam, "aux": aux, "it": 1}
 
     def one():
         i = carry["it"]
@@ -776,19 +1071,19 @@ def time_training(state, cams, gts, card):
         split.append([a.elapsed_time(b) for a, b in zip(events, events[1:])])
     step_ms = float(np.median(wall))
     parts = np.median(np.array(split), axis=0)
-    print(f"[time] {card}: training step, {N_SPLATS} splats, {TRAIN_VIEWS} cameras "
+    print(f"[time] {card}: {what}, {N_SPLATS} splats, {TRAIN_VIEWS} cameras "
           f"at {WIDTH}x{HEIGHT}, default OptimizationParams, median of {FRAMES} steps "
           f"{step_ms:.4f} ms = {1e3 / step_ms:.4f} iterations/s; by CUDA events: "
           + ", ".join(f"{s} {ms:.4f} ms" for s, ms in zip(stages, parts)))
     kernel_ms, top = device_kernel_ms(one, 5)
-    print_device("training step", kernel_ms, top, step_ms)
-    # the backward's own kernels: K2, and index_add_'s scatter (the default
-    # GMT_GRAD_REDUCE=compact reduction)
-    for what, key in (("raster_bwd (K2)", "raster_bwd_kernel"),
-                      ("the index_add_ reduction", "indexFuncLargeIndex")):
+    print_device(what, kernel_ms, top, step_ms)
+    # the compositor's kernels (K1/K2, or K3/K4 over slots), and
+    # index_add_'s scatter (the default GMT_GRAD_REDUCE=compact reduction)
+    for part, key in (("render", "raster_fwd_kernel"), ("backward", "raster_bwd_kernel"),
+                      ("backward", "indexFuncLargeIndex")):
         ms = sum(t for name, t, _ in top if key in name)
-        print(f"[time] training step backward {parts[2]:.4f} ms, of which {what} "
-              f"{ms:.4f} ms device time (torch.profiler)")
+        print(f"[time] {what}: {part} {parts[stages.index(part)]:.4f} ms, of which "
+              f"{key} {ms:.4f} ms device time (torch.profiler)")
     return 1e3 / step_ms
 
 
@@ -822,6 +1117,27 @@ def time_kernels(io, n_splats, width, height):
     return out
 
 
+def time_seeded_kernels(io, width, height):
+    """{kernel: (ms, plain_ms, None)} of K3 and K4 on the seeded stratum."""
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    blob, ids, ranges, fb, ints, ct, init = (
+        io[k] for k in ("blob", "ids", "ranges", "fb", "ints", "ct", "init"))
+    args = (blob, ids, ranges, width, height)
+    bargs = (blob, ids, ranges, fb, ints, ct, width, height) + tuple(io["need"])
+    with torch.inference_mode():
+        return {
+            "raster_fwd_seeded": (
+                time_ms(lambda: rt.composite_tiles(*args, init=init), FRAMES),
+                time_ms(lambda: rt.composite_tiles_plain(*args, init=init),
+                        PLAIN_FRAMES, warmup=1), None),
+            "raster_bwd_seeded": (
+                time_ms(lambda: rt.composite_tiles_bwd(*bargs, init=init), FRAMES),
+                time_ms(lambda: rt.composite_tiles_bwd_plain(*bargs, init=init),
+                        PLAIN_FRAMES, warmup=1), None),
+        }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -848,16 +1164,24 @@ def main(argv=None):
 
     # 3. kernels vs plain versions; tiled vs the dense oracle
     cam_s, arrays = small_scene(dev)
-    errs, _ = compare_kernels(small_prep(cam_s, arrays, dev), cam_s.width,
-                              cam_s.height, "small 64x32",
-                              [(True, True), (False, False)])
+    prep_small = small_prep(cam_s, arrays, dev)
+    both = [(True, True), (False, False)]
+    errs, _ = compare_kernels(prep_small, cam_s.width, cam_s.height, "small 64x32", both)
+    errs.update(compare_seeded(prep_small, cam_s.width, cam_s.height, "small 64x32",
+                               both)[0])
     tiled_vs_dense(dev)
     state_t, cams_t, gts_t = bench_state(args.seed, N_SPLATS, WIDTH, HEIGHT, dev)
     # the training step's frame: camera 0, SH bands above degree 0 masked
-    # (iterations below 1000), no distortion or median terms in K2
+    # (iterations below 1000), no distortion or median terms in K2 and K4
     prep_t = frame_prep(state_t, cams_t[0], SH_DEGREE, active_degree=0)
-    errs_t, io_t = compare_kernels(prep_t, WIDTH, HEIGHT,
-                                   "full 776x584 training frame", [(False, False)])
+    label_t = "full 776x584 training frame"
+    errs_t, io_t = compare_kernels(prep_t, WIDTH, HEIGHT, label_t, [(False, False)])
+    # the Gaussian-sharded step's two shapes: pass 1 (identity seed, where
+    # most of its K3/K4 time goes) and pass 2 (the fold's seed)
+    e_pass1, io_pass1 = compare_seeded(prep_t, WIDTH, HEIGHT, label_t, [(False, False)],
+                                       k=0)
+    e_pass2, io_pass2 = compare_seeded(prep_t, WIDTH, HEIGHT, label_t, [(False, False)])
+    errs_t.update({k: max(e_pass1[k], e_pass2[k]) for k in e_pass1})
     errs = {k: max(errs[k], errs_t[k]) for k in KERNELS}
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
@@ -870,37 +1194,61 @@ def main(argv=None):
         state_s = state_from_numpy(params, np.ones(N_SPLATS, bool),
                                    np.zeros(N_SPLATS, np.int32), SH_DEGREE,
                                    SH_DEGREE, 1.0, device=dev)
-        e_s, _ = compare_kernels(frame_prep(state_s, cams[0].params(dev), SH_DEGREE),
-                                 WIDTH, HEIGHT, "full 776x584 serving frame",
-                                 [(True, True)])
+        prep_s = frame_prep(state_s, cams[0].params(dev), SH_DEGREE)
+        label_s = "full 776x584 serving frame"
+        e_s, _ = compare_kernels(prep_s, WIDTH, HEIGHT, label_s, [(True, True)])
+        e_s.update(compare_seeded(prep_s, WIDTH, HEIGHT, label_s, [(True, True)])[0])
         errs = {k: max(errs[k], e_s[k]) for k in KERNELS}
-        serve(model, state_s, dev)
+        _, ex_single = serve(model, state_s, dev)
+        serve_sharded(model, ex_single, dev)
+        row_sharded_render(dev)
 
-        # 5. the training path
-        counts, seg_counts = train_path(root, args.seed, N_SPLATS, WIDTH, HEIGHT, dev)
+        # 5. the training paths
+        counts, seg_counts, losses = train_path(root, args.seed, N_SPLATS, WIDTH,
+                                                HEIGHT, dev)
+        mp_counts = train_slots_path(root, dev, losses)
 
     # 6. timings
     time_serving(state_s, cams[0].params(dev), dev, card)
     ips = time_training(state_t, cams_t, gts_t, card)
+    from gaussmart_tpu_torch.parallel.sharding import make_mesh
+    mp_ips = time_training(state_t, cams_t, gts_t, card, mesh=make_mesh(N_SLOTS, dev))
     times = time_kernels(io_t, N_SPLATS, WIDTH, HEIGHT)
+    times.update(time_seeded_kernels(io_pass1, WIDTH, HEIGHT))
     bounds = kernel_bounds(io_t, N_SPLATS, WIDTH, HEIGHT)
-    print(f"[time] {card}: kernels on the full-width training frame, median of "
-          f"{FRAMES} ({PLAIN_FRAMES} for raster_fwd/raster_bwd's plain versions): "
-          + "; ".join(f"{k} {ms:.4f} ms, plain {p:.4f} ms"
-                      + (f", torch.segment_reduce {lib:.4f} ms" if lib else "")
-                      for k, (ms, p, lib) in times.items()))
+    bounds.update(seeded_bounds(io_pass1, WIDTH, HEIGHT))
+    pass2 = time_seeded_kernels(io_pass2, WIDTH, HEIGHT)
+    pass2_bounds = seeded_bounds(io_pass2, WIDTH, HEIGHT)
+
+    def listed(ts):
+        return "; ".join(f"{k} {ms:.4f} ms, plain {p:.4f} ms"
+                         + (f", torch.segment_reduce {lib:.4f} ms" if lib else "")
+                         for k, (ms, p, lib) in ts.items())
+    print(f"[time] {card}: kernels on the full-width training frame (the seeded ones "
+          f"on its first depth stratum of {N_SLOTS} from the identity seed, as in "
+          f"pass 1), median of {FRAMES} ({PLAIN_FRAMES} for the compositors' plain "
+          f"versions): {listed(times)}")
+    print(f"[time] {card}: the seeded kernels on pass 2's shape (stratum 2, seeded by "
+          f"stratum 1): {listed(pass2)}; bounds "
+          + ", ".join(f"{k} {b[0]:.4f} ms ({b[1]})" for k, b in pass2_bounds.items()))
     print(f"[time] card during the run: {card_state()}")
     print(f"[result] {card}: {ips:.4f} training iterations/s at {N_SPLATS} splats, "
-          f"{WIDTH}x{HEIGHT}")
+          f"{WIDTH}x{HEIGHT}; Gaussian-sharded over {N_SLOTS} slots on the one card "
+          f"{mp_ips:.4f} iterations/s")
 
+    # each kernel's launches on its main path: K1/K2 in single-device
+    # training, K5 on the segsum route, K3/K4 in Gaussian-sharded training
     launches = {"raster_fwd": counts["raster_fwd"], "raster_bwd": counts["raster_bwd"],
-                "segsum": seg_counts["segsum"]}
+                "segsum": seg_counts["segsum"],
+                "raster_fwd_seeded": mp_counts["raster_fwd_seeded"],
+                "raster_bwd_seeded": mp_counts["raster_bwd_seeded"]}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",
-        "source": f"gaussmart_tpu_torch/csrc/{k}.cu", "replaces": KERNELS[k],
+        "source": f"gaussmart_tpu_torch/csrc/{src}.cu", "replaces": replaces,
         "launches": launches[k], "max_abs_err": errs[k],
         "ms": times[k][0], "plain_ms": times[k][1], "bound_ms": bounds[k][0],
-        "bound_by": bounds[k][1], "library_ms": times[k][2]} for k in KERNELS]}))
+        "bound_by": bounds[k][1], "library_ms": times[k][2]}
+        for k, (src, replaces) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

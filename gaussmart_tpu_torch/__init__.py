@@ -6,17 +6,20 @@ It imports torch and numpy, never jax and nothing of gaussmart_tpu. Entry
 points run on a CUDA device unless the caller asks for the CPU
 (``device="cpu"`` / ``--device cpu``); they never fall back on their own.
 
-This slice covers serving: loading a trained model and rendering it
-(``python -m gaussmart_tpu_torch.render_cli -m <model> --skip_mesh``). The
-one TPU kernel on that path, the forward tile compositor, is a hand-written
-CUDA kernel (csrc/raster_fwd.cu); its plain PyTorch version runs on CPU
-tensors.
+It covers serving (``python -m gaussmart_tpu_torch.render_cli -m <model>
+--skip_mesh``), training (``python -m gaussmart_tpu_torch.train -s <scene>
+-m <out>``) and both over D device slots (``--n_devices D``; parallel/).
+Every TPU kernel of those paths is a hand-written CUDA kernel (csrc/): the
+tile compositor forward and backward, their seeded variants for
+Gaussian-sharded rendering, and the sorted segment sum; each has its plain
+PyTorch version, which runs on CPU tensors.
 
 Layer map:
   ops/        - SH eval, depth->normal
   io/         - PLY, PNG/TIFF, COLMAP, dataset readers, Gaussian snapshots
   models/     - Gaussian state (fixed capacity + active mask)
-  render/     - preprocess, dense compositor, tiled compositor + kernel
+  render/     - preprocess, dense compositor, tiled compositor + kernels
   mesh/       - GaussianExtractor (render every view, export images)
+  parallel/   - device slots: data-parallel, row- and Gaussian-sharded
   kernels.py  - nvcc build + ctypes loading of csrc/*.cu
 """

@@ -69,6 +69,11 @@ class CameraParams:
     def device(self) -> torch.device:
         return self.world_view.device
 
+    def to(self, device) -> "CameraParams":
+        return dataclasses.replace(self, world_view=self.world_view.to(device),
+                                   full_proj=self.full_proj.to(device),
+                                   camera_center=self.camera_center.to(device))
+
 
 def _params(world_view, full_proj, camera_center, fovx, fovy, width, height,
             device) -> CameraParams:

@@ -1,10 +1,13 @@
 // raster_bwd: backward tile compositor of the 2DGS surfel rasterizer.
 //
 // Replaces the TPU kernel gaussmart_tpu/render/raster_pallas.py
-// ::_make_bwd_kernel (with_init=False), launched in _core_bwd, with the
-// per-entry geometry VJP of _geom_fwd_res / _geom_manual_bwd. It computes
-// that kernel's semantics, not its TPU layout: the 4-stream (8,128)
-// packing, K=64 DMA chunks, F_PAD=128 rows and the id lane are gone.
+// ::_make_bwd_kernel, with the per-entry geometry VJP of _geom_fwd_res /
+// _geom_manual_bwd: with_init=False (K2, entry point raster_bwd, launched
+// in _core_bwd) and with_init=True (K4, entry point raster_bwd_seeded,
+// launched in _seeded_bwd: the backward of raster_fwd_seeded for
+// Gaussian-sharded training). It computes that kernel's semantics, not its
+// TPU layout: the 4-stream (8,128) packing, K=64 DMA chunks, F_PAD=128
+// rows and the id lane are gone.
 //
 // Shape: one block per 16x16 tile, one thread per pixel (256 threads).
 // The block's walk bound is the largest n_contrib over its pixels (from
@@ -35,6 +38,19 @@
 // skips the reduction (an exact shortcut: every field is 0) for entries no
 // pixel of the block contributes to.
 //
+// K4 (SEEDED) differs in four places, derived in the TPU kernel's
+// docstring from the seeded distortion written as the in-stratum pairwise
+// sum plus the upstream cross term: the raw M1/M2 outputs carry cotangents
+// (dM1, dM2: ct has 13 channels), adding m dM1 + m^2 dM2 to dL/dw and
+// (dM1 + 2 m dM2) w dm/dd to dL/dd, so m is computed even without the
+// distortion term; A_n becomes A_n + (1 - T0) in the distortion terms; and
+// after the walk each pixel writes its seed gradient gi:
+//   gT0 = (S_end + T_final dT) / max(T0, 1e-12) - dDist (M2_n - M2_0)
+//   gM1 = dM1 - 2 dDist (M1_n - M1_0),   gM2 = dM2 + dDist A_n
+// (the dDist terms only with NEED_DIST). The seed is read once per pixel
+// and kept in registers. T0 = 0 (a stratum past a termination) gives
+// S_end = T_final = 0, so gT0 = 0 there.
+//
 // Rounding: compiled with -fmad=false, expf and IEEE division, with every
 // per-pixel expression in composite_tiles_bwd_plain's order, so the
 // per-pixel values round as the plain version's do; only the order of the
@@ -56,14 +72,15 @@ constexpr float FILTER_INV_SQUARE = 2.0f;
 constexpr float MAPPED_SCALE = (float)(100.0 / (100.0 - 0.2));  // FAR/(FAR-NEAR)
 constexpr float FARNEAR = (float)((100.0 * 0.2) / (100.0 - 0.2));
 
-template <bool NEED_DIST, bool NEED_MED>
+template <bool NEED_DIST, bool NEED_MED, bool SEEDED>
 __global__ void __launch_bounds__(THREADS)
 raster_bwd_kernel(const float* __restrict__ blob,
                   const int* __restrict__ entry_ids,
                   const int* __restrict__ tile_ranges,
                   const float* __restrict__ fb, const int* __restrict__ ints,
-                  const float* __restrict__ ct, int tiles_x, int h_pad,
-                  int w_pad, float* __restrict__ rows_out) {
+                  const float* __restrict__ ct, const float* __restrict__ init,
+                  int tiles_x, int h_pad, int w_pad, float* __restrict__ rows_out,
+                  float* __restrict__ gi) {
   __shared__ int ids[THREADS];
   __shared__ float rows[THREADS * F];
   __shared__ float partial[WARPS][F];
@@ -93,6 +110,16 @@ raster_bwd_kernel(const float* __restrict__ blob,
   const float dN0 = ct[5 * plane + p], dN1 = ct[6 * plane + p], dN2 = ct[7 * plane + p];
   const float dMed = ct[8 * plane + p], dDist = ct[9 * plane + p];
   const float dT = ct[10 * plane + p];
+  float T0 = 1.0f, M1_0 = 0.0f, M2_0 = 0.0f, dM1 = 0.0f, dM2 = 0.0f;
+  if (SEEDED) {
+    T0 = init[p];
+    M1_0 = init[plane + p];
+    M2_0 = init[2 * plane + p];
+    dM1 = ct[11 * plane + p];
+    dM2 = ct[12 * plane + p];
+  }
+  // in-stratum alpha plus the upstream alpha 1 - T0
+  const float A_eff = SEEDED ? A_n + (1.0f - T0) : A_n;
 
   if (tid == 0) s_bound = 0;
   __syncthreads();
@@ -165,17 +192,17 @@ raster_bwd_kernel(const float* __restrict__ blob,
       const float dsafe = contrib ? depth : 1.0f;
       float dLdw = r[14] * dC0 + r[15] * dC1 + r[16] * dC2 + depth * dD + dA
                    + r[17] * dN0 + r[18] * dN1 + r[19] * dN2;
-      float m = 0.0f;
-      if (NEED_DIST) {
+      float m = 0.0f, dm_dd = 0.0f;
+      if (NEED_DIST || SEEDED) {
         m = contrib ? MAPPED_SCALE * (1.0f - (1.0f / dsafe) * NEAR_PLANE) : 0.0f;
-        dLdw = dLdw + (m * m * A_n + M2_n - 2.0f * m * M1_n) * dDist;
+        dm_dd = (1.0f / (dsafe * dsafe)) * FARNEAR;
       }
+      if (NEED_DIST) dLdw = dLdw + (m * m * A_eff + M2_n - 2.0f * m * M1_n) * dDist;
+      if (SEEDED) dLdw = dLdw + m * dM1 + m * m * dM2;
       const float dLdalpha = contrib ? T_before * dLdw - (S + TdT) * inv_oma : 0.0f;
       float dLdd = w * dD;
-      if (NEED_DIST) {
-        const float dm_dd = (1.0f / (dsafe * dsafe)) * FARNEAR;
-        dLdd = dLdd + dDist * 2.0f * w * (m * A_n - M1_n) * dm_dd;
-      }
+      if (NEED_DIST) dLdd = dLdd + dDist * 2.0f * w * (m * A_eff - M1_n) * dm_dd;
+      if (SEEDED) dLdd = dLdd + (dM1 + 2.0f * m * dM2) * w * dm_dd;
       if (NEED_MED) dLdd = dLdd + (is_med ? dMed : 0.0f);
       dLdd = grad_any ? dLdd : 0.0f;
 
@@ -247,16 +274,53 @@ raster_bwd_kernel(const float* __restrict__ blob,
       }
     }
   }
+
+  if (SEEDED) {
+    float gT0 = (S + TdT) / fmaxf(T0, 1e-12f);
+    float gM1 = dM1, gM2 = dM2;
+    if (NEED_DIST) {
+      gT0 = gT0 - dDist * (M2_n - M2_0);
+      gM1 = gM1 - 2.0f * dDist * (M1_n - M1_0);
+      gM2 = gM2 + dDist * A_n;
+    }
+    gi[p] = gT0;
+    gi[plane + p] = gM1;
+    gi[2 * plane + p] = gM2;
+  }
 }
 
-template <bool NEED_DIST, bool NEED_MED>
+template <bool NEED_DIST, bool NEED_MED, bool SEEDED>
 void launch(const void* blob, const void* entry_ids, const void* tile_ranges,
-            const void* fb, const void* ints, const void* ct, int tiles_x,
-            int tiles_y, void* rows, cudaStream_t stream) {
-  raster_bwd_kernel<NEED_DIST, NEED_MED><<<tiles_x * tiles_y, THREADS, 0, stream>>>(
-      (const float*)blob, (const int*)entry_ids, (const int*)tile_ranges,
-      (const float*)fb, (const int*)ints, (const float*)ct, tiles_x,
-      tiles_y * TILE, tiles_x * TILE, (float*)rows);
+            const void* fb, const void* ints, const void* ct, const void* init,
+            int tiles_x, int tiles_y, void* rows, void* gi, cudaStream_t stream) {
+  raster_bwd_kernel<NEED_DIST, NEED_MED, SEEDED>
+      <<<tiles_x * tiles_y, THREADS, 0, stream>>>(
+          (const float*)blob, (const int*)entry_ids, (const int*)tile_ranges,
+          (const float*)fb, (const int*)ints, (const float*)ct, (const float*)init,
+          tiles_x, tiles_y * TILE, tiles_x * TILE, (float*)rows, (float*)gi);
+}
+
+template <bool SEEDED>
+int dispatch(const void* blob, const void* entry_ids, const void* tile_ranges,
+             const void* fb, const void* ints, const void* ct, const void* init,
+             int tiles_x, int tiles_y, int need_dist, int need_med, void* rows,
+             void* gi, void* stream) {
+  if (tiles_x * tiles_y > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (need_dist && need_med)
+      launch<true, true, SEEDED>(blob, entry_ids, tile_ranges, fb, ints, ct, init,
+                                 tiles_x, tiles_y, rows, gi, s);
+    else if (need_dist)
+      launch<true, false, SEEDED>(blob, entry_ids, tile_ranges, fb, ints, ct, init,
+                                  tiles_x, tiles_y, rows, gi, s);
+    else if (need_med)
+      launch<false, true, SEEDED>(blob, entry_ids, tile_ranges, fb, ints, ct, init,
+                                  tiles_x, tiles_y, rows, gi, s);
+    else
+      launch<false, false, SEEDED>(blob, entry_ids, tile_ranges, fb, ints, ct, init,
+                                   tiles_x, tiles_y, rows, gi, s);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -271,16 +335,21 @@ extern "C" int raster_bwd(const void* blob, const void* entry_ids,
                           const void* ints, const void* ct, int tiles_x,
                           int tiles_y, int need_dist, int need_med, void* rows,
                           void* stream) {
-  if (tiles_x * tiles_y > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (need_dist && need_med)
-      launch<true, true>(blob, entry_ids, tile_ranges, fb, ints, ct, tiles_x, tiles_y, rows, s);
-    else if (need_dist)
-      launch<true, false>(blob, entry_ids, tile_ranges, fb, ints, ct, tiles_x, tiles_y, rows, s);
-    else if (need_med)
-      launch<false, true>(blob, entry_ids, tile_ranges, fb, ints, ct, tiles_x, tiles_y, rows, s);
-    else
-      launch<false, false>(blob, entry_ids, tile_ranges, fb, ints, ct, tiles_x, tiles_y, rows, s);
-  }
-  return (int)cudaGetLastError();
+  return dispatch<false>(blob, entry_ids, tile_ranges, fb, ints, ct, nullptr,
+                         tiles_x, tiles_y, need_dist, need_med, rows, nullptr,
+                         stream);
+}
+
+// As raster_bwd for raster_fwd_seeded's outputs: init [3, h_pad, w_pad]
+// f32 is the forward's seed (T0, M1_0, M2_0), ct has 13 channels (also the
+// raw M1 and M2), and gi [3, h_pad, w_pad] f32 gets the seed's gradient at
+// every pixel.
+extern "C" int raster_bwd_seeded(const void* blob, const void* entry_ids,
+                                 const void* tile_ranges, const void* fb,
+                                 const void* ints, const void* ct,
+                                 const void* init, int tiles_x, int tiles_y,
+                                 int need_dist, int need_med, void* rows, void* gi,
+                                 void* stream) {
+  return dispatch<true>(blob, entry_ids, tile_ranges, fb, ints, ct, init, tiles_x,
+                        tiles_y, need_dist, need_med, rows, gi, stream);
 }

@@ -1,10 +1,20 @@
 // raster_fwd: forward tile compositor of the 2DGS surfel rasterizer.
 //
 // Replaces the TPU kernel gaussmart_tpu/render/raster_pallas.py
-// ::_make_fwd_kernel (with_init=False), launched in _core_fwd_impl. It
+// ::_make_fwd_kernel, launched in _core_fwd_impl: with_init=False (K1,
+// entry point raster_fwd) and with_init=True (K3, entry point
+// raster_fwd_seeded, the seeded compositor of Gaussian-sharded rendering
+// and training, reached from _raster_core_seeded / _seeded_fwd). It
 // computes that kernel's semantics, not its TPU layout: the 4-stream
 // (8,128) sub-tile packing, 32-px groups, 128-lane row padding, K=64 DMA
 // chunks with filler entries and the load-balancing tile order are gone.
+//
+// K3 is K1 with the walk started from a per-pixel seed (T0, M1_0, M2_0)
+// instead of (1, 0, 0): a depth-contiguous stratum of a larger splat set
+// then composites exactly against the global incoming transmittance and
+// distortion moments. The seed is read once per pixel into registers; a
+// seed T0 = 0 (a stratum past a termination) ends the pixel at its first
+// considered entry with mt = 0, as the TPU kernel does.
 //
 // Shape: one block per 16x16 tile, one thread per pixel (256 threads).
 // The tile's depth-sorted entries (splat ids into the [N+1, 20] blob, see
@@ -47,10 +57,12 @@ constexpr float NEAR_PLANE = 0.2f;
 constexpr float FILTER_INV_SQUARE = 2.0f;
 constexpr float MAPPED_SCALE = (float)(100.0 / (100.0 - 0.2));  // FAR/(FAR-NEAR)
 
+template <bool SEEDED>
 __global__ void __launch_bounds__(THREADS)
 raster_fwd_kernel(const float* __restrict__ blob,
                   const int* __restrict__ entry_ids,
                   const int* __restrict__ tile_ranges,
+                  const float* __restrict__ init,
                   int tiles_x, int h_pad, int w_pad,
                   float* __restrict__ fb, int* __restrict__ ints) {
   __shared__ int ids[THREADS];
@@ -64,8 +76,15 @@ raster_fwd_kernel(const float* __restrict__ blob,
   const float py = (float)y;
   const int start = tile_ranges[2 * tile];
   const int end = tile_ranges[2 * tile + 1];
+  const size_t plane = (size_t)h_pad * w_pad;
+  const size_t p = (size_t)y * w_pad + x;
 
   float T = 1.0f, M1 = 0.0f, M2 = 0.0f, mt = 2.0f;
+  if (SEEDED) {
+    T = init[p];
+    M1 = init[plane + p];
+    M2 = init[2 * plane + p];
+  }
   float C0 = 0.0f, C1 = 0.0f, C2 = 0.0f, D = 0.0f, A = 0.0f;
   float N0 = 0.0f, N1 = 0.0f, N2 = 0.0f, med = 0.0f, dist = 0.0f;
   int n_contrib = 0, med_e = -1;
@@ -141,13 +160,25 @@ raster_fwd_kernel(const float* __restrict__ blob,
     if (__syncthreads_count(done) == THREADS) break;
   }
 
-  const size_t plane = (size_t)h_pad * w_pad;
-  const size_t p = (size_t)y * w_pad + x;
   const float out[CH] = {C0, C1, C2, D, A, N0, N1, N2, med, dist, T, M1, M2, mt};
 #pragma unroll
   for (int c = 0; c < CH; ++c) fb[c * plane + p] = out[c];
   ints[p] = n_contrib;
   ints[plane + p] = med_e;
+}
+
+template <bool SEEDED>
+int launch(const void* blob, const void* entry_ids, const void* tile_ranges,
+           const void* init, int tiles_x, int tiles_y, void* fb, void* ints,
+           void* stream) {
+  const int n_tiles = tiles_x * tiles_y;
+  if (n_tiles > 0) {
+    raster_fwd_kernel<SEEDED><<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)blob, (const int*)entry_ids, (const int*)tile_ranges,
+        (const float*)init, tiles_x, tiles_y * TILE, tiles_x * TILE, (float*)fb,
+        (int*)ints);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -158,11 +189,15 @@ raster_fwd_kernel(const float* __restrict__ blob,
 extern "C" int raster_fwd(const void* blob, const void* entry_ids,
                           const void* tile_ranges, int tiles_x, int tiles_y,
                           void* fb, void* ints, void* stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  if (n_tiles > 0) {
-    raster_fwd_kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)blob, (const int*)entry_ids, (const int*)tile_ranges,
-        tiles_x, tiles_y * TILE, tiles_x * TILE, (float*)fb, (int*)ints);
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(blob, entry_ids, tile_ranges, nullptr, tiles_x, tiles_y,
+                       fb, ints, stream);
+}
+
+// As raster_fwd, from the seed init [3, h_pad, w_pad] f32 (T0, M1_0, M2_0).
+extern "C" int raster_fwd_seeded(const void* blob, const void* entry_ids,
+                                 const void* tile_ranges, const void* init,
+                                 int tiles_x, int tiles_y, void* fb, void* ints,
+                                 void* stream) {
+  return launch<true>(blob, entry_ids, tile_ranges, init, tiles_x, tiles_y, fb,
+                      ints, stream);
 }

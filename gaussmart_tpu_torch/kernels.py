@@ -1,12 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one source ``csrc/<name>.cu`` exporting a plain C function
-``<name>`` that launches it on the stream it is given and returns
-``cudaGetLastError()``. Sources are compiled with nvcc for Hopper
-(sm_90a) into a shared library under ``build/gaussmart_tpu_torch/`` at
-first use and loaded with ctypes; the library name carries a hash of the
-source and flags, so an edited source is rebuilt. Nothing is built or
-loaded at import time, and nothing here runs for CPU tensors.
+Each source ``csrc/<name>.cu`` exports plain C entry points (``<name>``,
+and for raster_fwd / raster_bwd also ``<name>_seeded``) that launch a
+kernel on the stream they are given and return ``cudaGetLastError()``.
+Sources are compiled with nvcc for Hopper (sm_90a) into a shared library
+under ``build/gaussmart_tpu_torch/`` at first use and loaded with ctypes;
+the library name carries a hash of the source and flags, so an edited
+source is rebuilt. Nothing is built or loaded at import time, and nothing
+here runs for CPU tensors.
 """
 from __future__ import annotations
 
@@ -56,18 +57,18 @@ def build(name: str) -> str:
     return proc.stdout
 
 
-def load(name: str, argtypes) -> ctypes._CFuncPtr:
-    """The C entry point ``name`` of csrc/<name>.cu, building it first if
-    needed. Every pointer and the stream are ``c_void_p`` in ``argtypes``."""
+def load(name: str, entry: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point `entry` of csrc/<name>.cu, building the library
+    first if needed. Every pointer and the stream are ``c_void_p`` in
+    ``argtypes``."""
     lib = _libs.get(name)
     if lib is None:
         build(name)
-        lib = ctypes.CDLL(str(library_path(name)))
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return getattr(lib, name)
+        lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+    fn = getattr(lib, entry)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def check_tensors(tensors, device):

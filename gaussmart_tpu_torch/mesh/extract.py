@@ -23,8 +23,11 @@ from gaussmart_tpu_torch.trajectory import (estimate_bounding_sphere, save_img_f
 
 class GaussianExtractor:
     def __init__(self, state: GaussianState, bg_color=None,
-                 depth_ratio: float = 0.0, backend: str = "auto"):
+                 depth_ratio: float = 0.0, backend: str = "auto", mesh=None):
+        """`mesh` (parallel.make_mesh) renders over device slots with a
+        sharded `backend`."""
         self.state = state
+        self.mesh = mesh
         self.bg = torch.tensor(bg_color if bg_color is not None else [0, 0, 0],
                                dtype=torch.float32, device=state.device)
         self.depth_ratio = depth_ratio
@@ -43,7 +46,8 @@ class GaussianExtractor:
         self.viewpoint_stack = list(viewpoint_stack)
         for cam in self.viewpoint_stack:
             pkg = render(cam.params(self.state.device), self.state, self.bg,
-                         depth_ratio=self.depth_ratio, backend=self.backend)
+                         depth_ratio=self.depth_ratio, backend=self.backend,
+                         mesh=self.mesh)
             self.rgbmaps.append(pkg["render"])
             self.depthmaps.append(pkg["surf_depth"])
             n = pkg["rend_normal"]

@@ -16,7 +16,7 @@ median depth, depth distortion.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -163,11 +163,25 @@ def rasterize_pixels(
     width: int,
     height: int,
     chunk: int = 64,
+    rows: Optional[int] = None,   # render only `rows` rows (row sharding)
+    row_offset: int = 0,          # index of the first of them
+    init_state: Optional[Dict[str, torch.Tensor]] = None,
+    return_raw: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Composite preprocessed splats into an image + 7-channel aux map."""
+    """Composite preprocessed splats into an image + 7-channel aux map.
+
+    `init_state` (flat [P] "T", and optionally "M1", "M2") seeds the
+    per-pixel carry, so a depth-contiguous stratum of a larger splat set
+    composites exactly against the global incoming state (Gaussian-sharded
+    rendering); a seed T below T_EPS starts the pixel done. `return_raw`
+    adds "raw", the final carry (premultiplied color/normal, depth, alpha,
+    median, dist, T, M1, M2, done, and the detached min test transmittance
+    min_test)."""
     N = prep.depth.shape[0]
     dev = prep.depth.device
-    P = width * height
+    if rows is None:
+        rows = height
+    P = width * rows
     half_wh = torch.tensor([0.5 * width, 0.5 * height], dtype=torch.float32,
                            device=dev)
 
@@ -187,9 +201,9 @@ def rasterize_pixels(
     }
     fields = {k: v[order] for k, v in fields.items()}
 
-    ys, xs = torch.meshgrid(torch.arange(height, dtype=torch.float32, device=dev),
-                            torch.arange(width, dtype=torch.float32, device=dev),
-                            indexing="ij")
+    ys, xs = torch.meshgrid(
+        torch.arange(rows, dtype=torch.float32, device=dev) + float(row_offset),
+        torch.arange(width, dtype=torch.float32, device=dev), indexing="ij")
     px = xs.reshape(P)
     py = ys.reshape(P)
 
@@ -204,6 +218,9 @@ def rasterize_pixels(
         "depth": zeros(P), "alpha": zeros(P),
         "M1": zeros(P), "M2": zeros(P), "dist": zeros(P), "median": zeros(P),
     }
+    if init_state is not None:
+        carry.update(init_state)
+        carry["done"] = carry["done"] | (carry["T"] < T_EPS)
     for s in range(0, N, chunk):
         carry = _chunk_body(carry, {k: v[s:s + chunk] for k, v in fields.items()},
                             px, py, half_wh)
@@ -216,7 +233,10 @@ def rasterize_pixels(
         carry["median"],
         carry["dist"],
     ], dim=0)
-    return {
-        "image": image.reshape(3, height, width),
-        "allmap": allmap.reshape(7, height, width),
+    out = {
+        "image": image.reshape(3, rows, width),
+        "allmap": allmap.reshape(7, rows, width),
     }
+    if return_raw:
+        out["raw"] = dict(carry, min_test=carry["min_test"].detach())
+    return out

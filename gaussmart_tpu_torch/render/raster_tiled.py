@@ -18,19 +18,26 @@ Three forward stages, the same semantics as the JAX package's tiled path:
   composite_tiles the forward compositor K1: the CUDA kernel
                   csrc/raster_fwd.cu for CUDA tensors, composite_tiles_plain
                   for CPU tensors. A CUDA tensor never takes the plain
-                  version.
+                  version. Given a per-pixel seed `init` (T0, M1_0, M2_0)
+                  it is K3, the seeded compositor of Gaussian-sharded
+                  rendering: the walk starts from the seed instead of
+                  (1, 0, 0), so a depth-contiguous stratum of a larger
+                  splat set composites against the global incoming state.
 
 The backward (RasterCore, a torch.autograd.Function like the JAX custom
 VJP _raster_core) runs K2, composite_tiles_bwd: the reverse walk writes
 one gradient row of the 20 blob fields per (splat, tile) entry, and
 grad_reduce sums the rows per splat (index_add_, or the sorted segment
-sum K5 of render/segsum.py when GMT_GRAD_REDUCE=segsum).
+sum K5 of render/segsum.py when GMT_GRAD_REDUCE=segsum). RasterCoreSeeded
+(the JAX _raster_core_seeded) runs K3 forward and K4 backward: K2 plus
+cotangents on the raw M1/M2 outputs, the seeded distortion terms and the
+seed's own gradient.
 """
 from __future__ import annotations
 
 import ctypes
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -46,16 +53,22 @@ CH = 14             # float framebuffer channels
 FB_CHANNELS = ("C0", "C1", "C2", "D", "A", "N0", "N1", "N2", "med", "dist",
                "T", "M1", "M2", "mt")
 CT = 11             # channels with cotangents: C0..2 D A N0..2 med dist T
+CT_SEEDED = 13      # the seeded core's: also M1 and M2 (they feed the fold)
 FARNEAR = (FAR_PLANE * NEAR_PLANE) / (FAR_PLANE - NEAR_PLANE)  # d(mapped)/d(depth) * depth^2
 GRAD_REDUCE_MODES = ("compact", "scatter", "segsum")
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+_SEEDED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p] * 2)
+_SEEDED_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                        + [ctypes.c_void_p] * 3)
 
-# K1 and K2 launches in this process; chip_smoke.py zeroes them before
-# driving the main path and reads them after
+# K1, K2, K3 and K4 launches in this process; chip_smoke.py zeroes them
+# before driving a main path and reads them after
 launches = 0
 bwd_launches = 0
+seeded_launches = 0
+seeded_bwd_launches = 0
 
 
 def tile_grid(width: int, height: int) -> Tuple[int, int]:
@@ -183,10 +196,26 @@ def binning(prep: Preprocessed, tiles_x: int, tiles_y: int
     return entry_ids, tile_ranges.contiguous()
 
 
+def _to_tiles(x: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
+    """[C, H_pad, W_pad] -> [C, n_tiles, 256], pixels of a tile row-major."""
+    C = x.shape[0]
+    x = x.reshape(C, tiles_y, TILE, tiles_x, TILE).permute(0, 1, 3, 2, 4)
+    return x.reshape(C, tiles_x * tiles_y, TILE * TILE)
+
+
+def _to_image(x: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
+    """[C, n_tiles, 256] -> [C, H_pad, W_pad], the inverse of _to_tiles."""
+    C = x.shape[0]
+    x = x.reshape(C, tiles_y, tiles_x, TILE, TILE).permute(0, 1, 3, 2, 4)
+    return x.reshape(C, tiles_y * TILE, tiles_x * TILE).contiguous()
+
+
 def composite_tiles_plain(blob: torch.Tensor, entry_ids: torch.Tensor,
-                          tile_ranges: torch.Tensor, width: int, height: int
+                          tile_ranges: torch.Tensor, width: int, height: int,
+                          init: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1, vectorised over every tile's 256
+    """Plain PyTorch version of K1 (K3 given `init`, the per-pixel seed
+    [3, H_pad, W_pad] of T, M1, M2), vectorised over every tile's 256
     pixels, looping over entry position up to the longest tile list. Same
     per-entry expressions, in the same order, as csrc/raster_fwd.cu."""
     tiles_x, tiles_y = tile_grid(width, height)
@@ -202,7 +231,11 @@ def composite_tiles_plain(blob: torch.Tensor, entry_ids: torch.Tensor,
     def zeros():
         return torch.zeros_like(px)
 
-    T, M1, M2, mt = zeros() + 1.0, zeros(), zeros(), zeros() + 2.0
+    if init is None:
+        T, M1, M2 = zeros() + 1.0, zeros(), zeros()
+    else:
+        T, M1, M2 = _to_tiles(init, tiles_x, tiles_y).unbind(0)
+    mt = zeros() + 2.0
     acc = {k: zeros() for k in ("C0", "C1", "C2", "D", "A", "N0", "N1", "N2",
                                 "med", "dist")}
     done = torch.zeros_like(px, dtype=torch.bool)
@@ -247,46 +280,55 @@ def composite_tiles_plain(blob: torch.Tensor, entry_ids: torch.Tensor,
     planes = dict(acc, T=T, M1=M1, M2=M2, mt=mt)
     fb = torch.stack([planes[k] for k in FB_CHANNELS])
     ints = torch.stack([n_contrib, med_e]).to(torch.int32)
-
-    def to_image(x):    # [C, n_tiles, 256] -> [C, H_pad, W_pad]
-        C = x.shape[0]
-        x = x.reshape(C, tiles_y, tiles_x, TILE, TILE).permute(0, 1, 3, 2, 4)
-        return x.reshape(C, tiles_y * TILE, tiles_x * TILE).contiguous()
-
-    return to_image(fb), to_image(ints)
+    return _to_image(fb, tiles_x, tiles_y), _to_image(ints, tiles_x, tiles_y)
 
 
 def composite_tiles(blob: torch.Tensor, entry_ids: torch.Tensor,
-                    tile_ranges: torch.Tensor, width: int, height: int
+                    tile_ranges: torch.Tensor, width: int, height: int,
+                    init: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1: (fb [14, H_pad, W_pad] f32, ints [2, H_pad, W_pad] i32).
+    """K1, or K3 given the seed `init` [3, H_pad, W_pad] f32 (T0, M1_0,
+    M2_0): (fb [14, H_pad, W_pad] f32, ints [2, H_pad, W_pad] i32).
 
     CPU tensors take composite_tiles_plain. CUDA tensors launch
-    csrc/raster_fwd.cu on the current stream or raise."""
+    csrc/raster_fwd.cu (entry raster_fwd, or raster_fwd_seeded) on the
+    current stream or raise."""
     if blob.device.type == "cpu":
-        return composite_tiles_plain(blob, entry_ids, tile_ranges, width, height)
+        return composite_tiles_plain(blob, entry_ids, tile_ranges, width, height, init)
     if blob.device.type != "cuda":
         raise ValueError(f"composite_tiles runs on CPU or CUDA tensors, not {blob.device}")
     tiles_x, tiles_y = tile_grid(width, height)
+    h_pad, w_pad = tiles_y * TILE, tiles_x * TILE
     kernels.check_tensors((("blob", blob, torch.float32, 2),
                            ("entry_ids", entry_ids, torch.int32, 1),
-                           ("tile_ranges", tile_ranges, torch.int32, 2)), blob.device)
-    if blob.shape[1] != F or tuple(tile_ranges.shape) != (tiles_x * tiles_y, 2):
-        raise ValueError(f"blob {tuple(blob.shape)} must be [N+1, {F}] and "
+                           ("tile_ranges", tile_ranges, torch.int32, 2))
+                          + ((("init", init, torch.float32, 3),) if init is not None
+                             else ()), blob.device)
+    if (blob.shape[1] != F or tuple(tile_ranges.shape) != (tiles_x * tiles_y, 2)
+            or (init is not None and tuple(init.shape) != (3, h_pad, w_pad))):
+        raise ValueError(f"blob {tuple(blob.shape)} must be [N+1, {F}], "
                          f"tile_ranges {tuple(tile_ranges.shape)} "
-                         f"[{tiles_x * tiles_y}, 2]")
-    fn = kernels.load("raster_fwd", _ARGTYPES)
-    h_pad, w_pad = tiles_y * TILE, tiles_x * TILE
+                         f"[{tiles_x * tiles_y}, 2] and init [3, {h_pad}, {w_pad}]")
     fb = torch.empty((CH, h_pad, w_pad), dtype=torch.float32, device=blob.device)
     ints = torch.empty((2, h_pad, w_pad), dtype=torch.int32, device=blob.device)
     with torch.cuda.device(blob.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(blob.data_ptr(), entry_ids.data_ptr(), tile_ranges.data_ptr(),
-                 tiles_x, tiles_y, fb.data_ptr(), ints.data_ptr(), stream)
+        if init is None:
+            err = kernels.load("raster_fwd", "raster_fwd", _ARGTYPES)(
+                blob.data_ptr(), entry_ids.data_ptr(), tile_ranges.data_ptr(),
+                tiles_x, tiles_y, fb.data_ptr(), ints.data_ptr(), stream)
+        else:
+            err = kernels.load("raster_fwd", "raster_fwd_seeded", _SEEDED_ARGTYPES)(
+                blob.data_ptr(), entry_ids.data_ptr(), tile_ranges.data_ptr(),
+                init.data_ptr(), tiles_x, tiles_y, fb.data_ptr(), ints.data_ptr(),
+                stream)
     if err != 0:
         raise RuntimeError(f"raster_fwd launch failed with CUDA error {err}")
-    global launches
-    launches += 1
+    global launches, seeded_launches
+    if init is None:
+        launches += 1
+    else:
+        seeded_launches += 1
     return fb, ints
 
 
@@ -370,7 +412,8 @@ def composite_tiles_bwd_plain(blob: torch.Tensor, entry_ids: torch.Tensor,
                               tile_ranges: torch.Tensor, fb: torch.Tensor,
                               ints: torch.Tensor, ct: torch.Tensor,
                               width: int, height: int, need_dist: bool = True,
-                              need_med: bool = True) -> torch.Tensor:
+                              need_med: bool = True,
+                              init: Optional[torch.Tensor] = None):
     """Plain PyTorch version of K2: per (splat, tile) entry, the 20 blob
     fields' gradients summed over the tile's 256 pixels, [M', 20] (entries
     no pixel reached stay zero). Vectorised over every tile's pixels, it
@@ -379,21 +422,32 @@ def composite_tiles_bwd_plain(blob: torch.Tensor, entry_ids: torch.Tensor,
     kernel's, raster_pallas.py:608-711).
 
     fb/ints are K1's outputs, ct the cotangents of the first CT fb
-    channels, all in image layout [C, H_pad, W_pad]."""
+    channels, all in image layout [C, H_pad, W_pad].
+
+    Given the seed `init` [3, H_pad, W_pad] this is K4 (the JAX
+    _make_bwd_kernel(with_init=True), raster_pallas.py:505-522, 558-757):
+    fb/ints come from K3, ct carries CT_SEEDED channels (raw M1 and M2 as
+    well), the distortion terms use A_n + (1 - T0), the moment cotangents
+    add m dM1 + m^2 dM2 to dL/dw and (dM1 + 2 m dM2) w dm/dd to dL/dd, and
+    it returns (rows, gi), gi [3, H_pad, W_pad] the seed's gradient."""
     tiles_x, tiles_y = tile_grid(width, height)
     n_tiles = tiles_x * tiles_y
     dev = blob.device
     rows_out = torch.zeros((entry_ids.shape[0], F), dtype=torch.float32, device=dev)
+    seeded = init is not None
 
-    def to_tiles(x):    # [C, H_pad, W_pad] -> [C, n_tiles, 256]
-        C = x.shape[0]
-        x = x.reshape(C, tiles_y, TILE, tiles_x, TILE).permute(0, 1, 3, 2, 4)
-        return x.reshape(C, n_tiles, TILE * TILE)
+    def to_tiles(x):
+        return _to_tiles(x, tiles_x, tiles_y)
 
     f = to_tiles(fb)
     A_n, T_final, M1_n, M2_n = f[4], f[10], f[11], f[12]
     n_contrib, med_e = to_tiles(ints)
-    dC0, dC1, dC2, dD, dA, dN0, dN1, dN2, dMed, dDist, dT = to_tiles(ct)
+    dC0, dC1, dC2, dD, dA, dN0, dN1, dN2, dMed, dDist, dT = to_tiles(ct)[:CT]
+    A_eff = A_n
+    if seeded:
+        dM1, dM2 = to_tiles(ct)[CT:CT_SEEDED]
+        T0, M1_0, M2_0 = to_tiles(init)
+        A_eff = A_n + (1.0 - T0)
     starts = tile_ranges[:, 0].to(torch.int64)
     counts = (tile_ranges[:, 1] - tile_ranges[:, 0]).to(torch.int64)
     bound = torch.minimum(n_contrib.amax(dim=1).to(torch.int64), counts)
@@ -424,14 +478,20 @@ def composite_tiles_bwd_plain(blob: torch.Tensor, entry_ids: torch.Tensor,
         dsafe = torch.where(contrib, depth, 1.0)
         dLdw = (r[14] * dC0 + r[15] * dC1 + r[16] * dC2 + depth * dD + dA
                 + r[17] * dN0 + r[18] * dN1 + r[19] * dN2)
-        if need_dist:
+        if need_dist or seeded:
             m = torch.where(contrib, mapped_depth(dsafe), 0.0)
-            dLdw = dLdw + (m * m * A_n + M2_n - 2.0 * m * M1_n) * dDist
+        if need_dist:
+            dLdw = dLdw + (m * m * A_eff + M2_n - 2.0 * m * M1_n) * dDist
+        if seeded:
+            dLdw = dLdw + m * dM1 + m * m * dM2
         dLdalpha = torch.where(contrib, T_before * dLdw - (S + TdT) * inv_oma, 0.0)
         dLdd = w * dD
-        if need_dist:
+        if need_dist or seeded:
             dm_dd = FARNEAR / (dsafe * dsafe)
-            dLdd = dLdd + dDist * 2.0 * w * (m * A_n - M1_n) * dm_dd
+        if need_dist:
+            dLdd = dLdd + dDist * 2.0 * w * (m * A_eff - M1_n) * dm_dd
+        if seeded:
+            dLdd = dLdd + (dM1 + 2.0 * m * dM2) * w * dm_dd
         if need_med:
             dLdd = dLdd + torch.where(is_med, dMed, 0.0)
         dLdd = torch.where(grad_any, dLdd, 0.0)
@@ -442,50 +502,80 @@ def composite_tiles_bwd_plain(blob: torch.Tensor, entry_ids: torch.Tensor,
         rows_out[slot[walked]] = row[walked]
         S = S + torch.where(contrib, w * dLdw, 0.0)
         T_cur = T_before
-    return rows_out
+    if not seeded:
+        return rows_out
+    # the seed's gradient: every output is linear in T0 through its
+    # w = T0 * (...) factors, so the w-routed part of dL/dT0 is S/T0; T0 is
+    # 0 only for strata past a termination, where S and T_final are 0 too
+    gT0 = (S + TdT) / torch.clamp_min(T0, 1e-12)
+    gM1, gM2 = dM1, dM2
+    if need_dist:
+        gT0 = gT0 - dDist * (M2_n - M2_0)
+        gM1 = gM1 - 2.0 * dDist * (M1_n - M1_0)
+        gM2 = gM2 + dDist * A_n
+    return rows_out, _to_image(torch.stack([gT0, gM1, gM2]), tiles_x, tiles_y)
 
 
 def composite_tiles_bwd(blob: torch.Tensor, entry_ids: torch.Tensor,
                         tile_ranges: torch.Tensor, fb: torch.Tensor,
                         ints: torch.Tensor, ct: torch.Tensor, width: int,
                         height: int, need_dist: bool = True,
-                        need_med: bool = True) -> torch.Tensor:
-    """K2: per-entry gradient rows [M', 20] f32 (see
+                        need_med: bool = True,
+                        init: Optional[torch.Tensor] = None):
+    """K2: per-entry gradient rows [M', 20] f32; or K4 given the seed
+    `init`: (rows, gi [3, H_pad, W_pad]) with ct of CT_SEEDED channels (see
     composite_tiles_bwd_plain). CPU tensors take the plain version. CUDA
-    tensors launch csrc/raster_bwd.cu on the current stream into rows
-    zero-filled here, or raise."""
+    tensors launch csrc/raster_bwd.cu (entry raster_bwd, or
+    raster_bwd_seeded) on the current stream into rows zero-filled here,
+    or raise."""
     if blob.device.type == "cpu":
         return composite_tiles_bwd_plain(blob, entry_ids, tile_ranges, fb, ints,
-                                         ct, width, height, need_dist, need_med)
+                                         ct, width, height, need_dist, need_med, init)
     if blob.device.type != "cuda":
         raise ValueError(f"composite_tiles_bwd runs on CPU or CUDA tensors, not {blob.device}")
     tiles_x, tiles_y = tile_grid(width, height)
     h_pad, w_pad = tiles_y * TILE, tiles_x * TILE
+    n_ct = CT if init is None else CT_SEEDED
     kernels.check_tensors((("blob", blob, torch.float32, 2),
                            ("entry_ids", entry_ids, torch.int32, 1),
                            ("tile_ranges", tile_ranges, torch.int32, 2),
                            ("fb", fb, torch.float32, 3), ("ints", ints, torch.int32, 3),
-                           ("ct", ct, torch.float32, 3)), blob.device)
+                           ("ct", ct, torch.float32, 3))
+                          + ((("init", init, torch.float32, 3),) if init is not None
+                             else ()), blob.device)
     if (blob.shape[1] != F or tuple(tile_ranges.shape) != (tiles_x * tiles_y, 2)
             or tuple(fb.shape) != (CH, h_pad, w_pad)
             or tuple(ints.shape) != (2, h_pad, w_pad)
-            or tuple(ct.shape) != (CT, h_pad, w_pad)):
+            or tuple(ct.shape) != (n_ct, h_pad, w_pad)
+            or (init is not None and tuple(init.shape) != (3, h_pad, w_pad))):
         raise ValueError(f"shapes blob {tuple(blob.shape)}, tile_ranges "
                          f"{tuple(tile_ranges.shape)}, fb {tuple(fb.shape)}, ints "
-                         f"{tuple(ints.shape)}, ct {tuple(ct.shape)} do not fit a "
-                         f"{width}x{height} frame")
-    fn = kernels.load("raster_bwd", _BWD_ARGTYPES)
+                         f"{tuple(ints.shape)}, ct {tuple(ct.shape)} (needs {n_ct} "
+                         f"channels) do not fit a {width}x{height} frame")
     rows = torch.zeros((entry_ids.shape[0], F), dtype=torch.float32, device=blob.device)
+    gi = None
     with torch.cuda.device(blob.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(blob.data_ptr(), entry_ids.data_ptr(), tile_ranges.data_ptr(),
-                 fb.data_ptr(), ints.data_ptr(), ct.data_ptr(), tiles_x, tiles_y,
-                 int(need_dist), int(need_med), rows.data_ptr(), stream)
+        if init is None:
+            err = kernels.load("raster_bwd", "raster_bwd", _BWD_ARGTYPES)(
+                blob.data_ptr(), entry_ids.data_ptr(), tile_ranges.data_ptr(),
+                fb.data_ptr(), ints.data_ptr(), ct.data_ptr(), tiles_x, tiles_y,
+                int(need_dist), int(need_med), rows.data_ptr(), stream)
+        else:
+            gi = torch.empty((3, h_pad, w_pad), dtype=torch.float32, device=blob.device)
+            err = kernels.load("raster_bwd", "raster_bwd_seeded", _SEEDED_BWD_ARGTYPES)(
+                blob.data_ptr(), entry_ids.data_ptr(), tile_ranges.data_ptr(),
+                fb.data_ptr(), ints.data_ptr(), ct.data_ptr(), init.data_ptr(),
+                tiles_x, tiles_y, int(need_dist), int(need_med), rows.data_ptr(),
+                gi.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"raster_bwd launch failed with CUDA error {err}")
-    global bwd_launches
-    bwd_launches += 1
-    return rows
+    global bwd_launches, seeded_bwd_launches
+    if init is None:
+        bwd_launches += 1
+        return rows
+    seeded_bwd_launches += 1
+    return rows, gi
 
 
 def grad_reduce_mode() -> str:
@@ -545,22 +635,92 @@ class RasterCore(torch.autograd.Function):
         return (grad_reduce(rows, entry_ids, blob.shape[0]),) + (None,) * 6
 
 
+class RasterCoreSeeded(torch.autograd.Function):
+    """K3 forward, K4 + grad_reduce backward (the JAX _raster_core_seeded
+    custom VJP), for Gaussian-sharded rendering and training: gradients
+    reach the blob and the per-pixel seed `init` [3, H_pad, W_pad] (T0,
+    M1_0, M2_0), and fb channels C0..2, D, A, N0..2, med, dist, T, M1 and
+    M2 carry cotangents (the raw T/M1/M2 feed the cross-stratum fold); mt
+    carries none."""
+
+    @staticmethod
+    def forward(ctx, blob, init, entry_ids, tile_ranges, width, height,
+                need_dist, need_med):
+        fb, ints = composite_tiles(blob, entry_ids, tile_ranges, width, height,
+                                   init=init)
+        ctx.save_for_backward(blob, init, entry_ids, tile_ranges, fb, ints)
+        ctx.meta = (width, height, need_dist, need_med)
+        ctx.mark_non_differentiable(ints)
+        return fb, ints
+
+    @staticmethod
+    def backward(ctx, g_fb, g_ints):
+        blob, init, entry_ids, tile_ranges, fb, ints = ctx.saved_tensors
+        width, height, need_dist, need_med = ctx.meta
+        if g_fb is None:
+            return (None,) * 8
+        ct = g_fb[:CT_SEEDED].contiguous()
+        rows, gi = composite_tiles_bwd(blob, entry_ids, tile_ranges, fb, ints, ct,
+                                       width, height, need_dist, need_med,
+                                       init=init.contiguous())
+        return (grad_reduce(rows, entry_ids, blob.shape[0]), gi) + (None,) * 6
+
+
 def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,
                     width: int, height: int, need_dist_grad: bool = True,
-                    need_med_grad: bool = True) -> Dict[str, torch.Tensor]:
+                    need_med_grad: bool = True,
+                    init_state: Optional[Dict[str, torch.Tensor]] = None,
+                    return_raw: bool = False,
+                    binned: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Tiled render: image [3,H,W], allmap [7,H,W] (expected depth, alpha,
     normal x3, median depth, distortion) and n_dropped, which is always 0
     because the binning never truncates. Differentiable through
     RasterCore; need_dist_grad/need_med_grad=False leave the distortion /
-    median terms out of the backward (valid when the loss reads neither)."""
+    median terms out of the backward (valid when the loss reads neither).
+
+    `init_state` (flat [H*W] "T", and optionally "M1", "M2") seeds each
+    pixel's walk, so a depth-contiguous stratum of a larger splat set
+    composites against the global incoming state: the seeded core
+    RasterCoreSeeded (K3/K4), differentiable in the splats and the seed,
+    its raw T/M1/M2 outputs too. `return_raw=True` adds "raw": the flat
+    per-pixel final state (premultiplied color/normal, depth, alpha,
+    median, dist, T, M1, M2, and the detached min test transmittance
+    min_test), as in the JAX package. Without init_state the raw M1/M2
+    carry no gradient; pass an identity seed to differentiate them.
+    `binned` = (entry_ids, tile_ranges) from binning(prep, ...) lets a
+    caller that composites the same prep twice bin it once."""
     tiles_x, tiles_y = tile_grid(width, height)
     blob = build_blob(prep, means2d, width, height)
-    with torch.no_grad():
-        entry_ids, tile_ranges = binning(prep, tiles_x, tiles_y)
-    fb, _ = RasterCore.apply(blob, entry_ids, tile_ranges, width, height,
-                             need_dist_grad, need_med_grad)
+    if binned is None:
+        with torch.no_grad():
+            binned = binning(prep, tiles_x, tiles_y)
+    entry_ids, tile_ranges = binned
+    if init_state is None:
+        fb, _ = RasterCore.apply(blob, entry_ids, tile_ranges, width, height,
+                                 need_dist_grad, need_med_grad)
+    else:
+        h_pad, w_pad = tiles_y * TILE, tiles_x * TILE
+
+        def pad_map(x, fill):   # flat [H*W] -> [1, H_pad, W_pad]
+            return torch.nn.functional.pad(x.reshape(1, height, width),
+                                           (0, w_pad - width, 0, h_pad - height),
+                                           value=fill)
+        zeros = blob.new_zeros(height * width)
+        init = torch.cat([pad_map(init_state["T"], 1.0),
+                          pad_map(init_state.get("M1", zeros), 0.0),
+                          pad_map(init_state.get("M2", zeros), 0.0)])
+        fb, _ = RasterCoreSeeded.apply(blob, init.contiguous(), entry_ids, tile_ranges,
+                                       width, height, need_dist_grad, need_med_grad)
     maps = fb[:, :height, :width]
     image = maps[0:3] + maps[10][None] * bg[:, None, None]
     allmap = maps[[3, 4, 5, 6, 7, 8, 9]]
-    return {"image": image, "allmap": allmap,
-            "n_dropped": torch.zeros((), dtype=torch.int32, device=fb.device)}
+    out = {"image": image, "allmap": allmap,
+           "n_dropped": torch.zeros((), dtype=torch.int32, device=fb.device)}
+    if return_raw:
+        flat = maps.reshape(CH, height * width)
+        out["raw"] = {"color": flat[0:3], "normal": flat[5:8], "depth": flat[3],
+                      "alpha": flat[4], "median": flat[8], "dist": flat[9],
+                      "T": flat[10], "M1": flat[11], "M2": flat[12],
+                      "min_test": flat[13].detach()}
+    return out

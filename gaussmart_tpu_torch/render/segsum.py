@@ -51,7 +51,7 @@ def segment_sum_sorted(rows: torch.Tensor, seg_ids: torch.Tensor,
         raise ValueError(f"rows {tuple(rows.shape)} and seg_ids "
                          f"{tuple(seg_ids.shape)} need one id per row, "
                          f"n_segments {n_segments} >= 0")
-    fn = kernels.load("segsum", _ARGTYPES)
+    fn = kernels.load("segsum", "segsum", _ARGTYPES)
     out = torch.empty((n_segments, rows.shape[1]), dtype=torch.float32,
                       device=rows.device)
     with torch.cuda.device(rows.device):

@@ -3,9 +3,12 @@
 The flags and output layout of gaussmart_tpu/render_cli.py:
 train|test/ours_N/{renders,gt,vis} and, with --render_path, the traj
 videos; plus ``--device {cuda,cpu}`` (default cuda: no CUDA device is an
-error, never a silent CPU run). Mesh export (run unless --skip_mesh) comes
-with the TSDF slice and multi-device rendering (--n_devices > 1) with the
-multi-device slice: both raise before any work.
+error, never a silent CPU run). ``--n_devices D`` renders over D device
+slots (parallel/sharding.py: D cards, or D slots sharing one card or the
+CPU): ``--shard_mode row`` (default) splits the image rows,
+``--shard_mode gaussian`` depth strata of the splats (the seeded tiled
+core K3 unless the pipeline's backend is dense). Mesh export (run unless
+--skip_mesh) comes with the TSDF slice and raises before any work.
 """
 from __future__ import annotations
 
@@ -40,9 +43,11 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--unbounded", action="store_true")
     parser.add_argument("--mesh_res", default=1024, type=int)
     parser.add_argument("--n_devices", default=1, type=int,
-                        help="multi-device inference")
+                        help="render over this many device slots")
     parser.add_argument("--shard_mode", default="row",
-                        choices=["row", "gaussian"])
+                        choices=["row", "gaussian"],
+                        help="row: image rows split over the slots; gaussian: "
+                             "depth strata of the splats")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="where to render (cuda unless asked otherwise)")
     return parser
@@ -54,9 +59,6 @@ def main(argv=None):
         raise NotImplementedError(
             "mesh export (TSDF fusion) comes with the TSDF slice of the "
             "port; pass --skip_mesh")
-    if args.n_devices > 1:
-        raise NotImplementedError(
-            "--n_devices > 1 comes with the multi-device slice of the port")
     setup()
     device = resolve_device(args.device)
     print("Rendering " + args.model_path)
@@ -69,12 +71,20 @@ def main(argv=None):
                   device=device)
     bg = [1, 1, 1] if dataset.white_background else [0, 0, 0]
 
+    mesh, backend = None, pipe.backend
+    if args.n_devices > 1:
+        from gaussmart_tpu_torch.parallel.sharding import (make_mesh,
+                                                           sharded_render_backend)
+        mesh = make_mesh(args.n_devices, device)
+        backend = (sharded_render_backend(pipe.backend) if args.shard_mode == "gaussian"
+                   else "row_sharded")
+
     it = scene.loaded_iter
     train_dir = os.path.join(args.model_path, "train", f"ours_{it}")
     test_dir = os.path.join(args.model_path, "test", f"ours_{it}")
     extractor = GaussianExtractor(scene.gaussians, bg_color=bg,
                                   depth_ratio=pipe.depth_ratio,
-                                  backend=pipe.backend)
+                                  backend=backend, mesh=mesh)
 
     if not args.skip_train:
         print("export training images ...")

@@ -1,16 +1,26 @@
 """Training CLI — ``python -m gaussmart_tpu_torch.train -s <scene> -m <out> ...``.
 
-The flags, schedule and outputs of gaussmart_tpu/train.py on one device:
-30k iterations, densify every 100 in (500, 15000), opacity reset every
-3000 (and at densify_from_iter on a white background), the SH degree
-raised every 1000, test/save at {7000, 30000}, checkpoints (.npz + .json,
-shared with the JAX package), dino_loss_log.csv and train_stats.csv, plus
+The flags, schedule and outputs of gaussmart_tpu/train.py: 30k
+iterations, densify every 100 in (500, 15000), opacity reset every 3000
+(and at densify_from_iter on a white background), the SH degree raised
+every 1000, test/save at {7000, 30000}, checkpoints (.npz + .json, shared
+with the JAX package), dino_loss_log.csv and train_stats.csv, plus
 ``--device {cuda,cpu}`` (default cuda: no CUDA device is an error, never
 a silent CPU run).
 
-Not in this slice: --n_devices > 1 and --parallel_mode mp (multi-device
-slice), --gui (viewer slice) and --run_segmentation (semantics slice)
-raise before any work. The DINO tower is not ported yet: --dino_mode
+``--n_devices D`` (D > 1) trains over D device slots (parallel/sharding.py:
+D cards, or D slots sharing one card or the CPU). ``--parallel_mode dp``
+(default) is camera data-parallel: D views per step, state replicated.
+``--parallel_mode mp`` is Gaussian-sharded: one view per step, params,
+Adam moments and densify statistics in per-slot chunks, the strata
+composited by the seeded tiled core (K3/K4) unless the pipeline's backend
+is dense; eval renders through the same sharded backend. Densify, opacity
+reset, snapshots and checkpoints run on the gathered state (file formats
+unchanged), which is then placed on the slots again, its capacity a
+multiple of D.
+
+Not in this slice: --gui (viewer slice) and --run_segmentation (semantics
+slice) raise before any work. The DINO tower is not ported yet: --dino_mode
 fixed/parity trains without the term, as the JAX trainer does wherever
 the encoder cannot load; in-loop eval reports L1, PSNR and SSIM (LPIPS
 comes with the eval slice). The binning never drops a (splat, tile)
@@ -38,6 +48,11 @@ from gaussmart_tpu_torch.models.gaussians import grow_capacity
 from gaussmart_tpu_torch.ops.image import l1_loss, psnr as psnr_fn
 from gaussmart_tpu_torch.ops.ssim import ssim as ssim_fn
 from gaussmart_tpu_torch.optim import AdamState, init_adam
+from gaussmart_tpu_torch.parallel.sharding import (BatchedCameras, gather_state,
+                                                   make_dp_train_step, make_mesh,
+                                                   make_mp_train_step, replicate,
+                                                   shard_batch, shard_state,
+                                                   sharded_render_backend)
 from gaussmart_tpu_torch.render.api import render
 from gaussmart_tpu_torch.runtime import resolve_device, setup
 from gaussmart_tpu_torch.scene import Scene
@@ -54,8 +69,12 @@ def training(dataset: ModelParams, opt: OptimizationParams,
              seed: int = 0, quiet: bool = False,
              capacity: Optional[int] = None, log_every: int = 10,
              tensorboard: bool = True, adam_on_densify: str = "drop",
-             device="cuda"):
-    """Train on one device; returns (state, adam)."""
+             device="cuda", n_devices: int = 1, parallel_mode: str = "dp"):
+    """Train; returns the (state, adam) on `device`. n_devices > 1 trains
+    over that many device slots, parallel_mode "dp" (camera data-parallel)
+    or "mp" (Gaussian-sharded)."""
+    if parallel_mode not in ("dp", "mp"):
+        raise ValueError(f"parallel_mode={parallel_mode!r}: expected 'dp' or 'mp'")
     os.makedirs(dataset.model_path, exist_ok=True)
     tb = TensorBoardLogger(dataset.model_path) if tensorboard else None
     scene = Scene(dataset, capacity=capacity, seed=seed, device=device)
@@ -80,11 +99,36 @@ def training(dataset: ModelParams, opt: OptimizationParams,
     log_rows: List[dict] = []
     stat_rows: List[dict] = []
 
-    step = make_train_step(opt, sh_degree=state.max_sh_degree,
-                           white_background=dataset.white_background,
-                           depth_ratio=pipe.depth_ratio, backend=pipe.backend,
-                           spatial_lr_scale=state.spatial_lr_scale,
-                           adam_on_densify=adam_on_densify)
+    mesh = make_mesh(n_devices, device) if n_devices > 1 else None
+    mp = mesh is not None and parallel_mode == "mp"
+    common = dict(sh_degree=state.max_sh_degree,
+                  white_background=dataset.white_background,
+                  depth_ratio=pipe.depth_ratio, spatial_lr_scale=state.spatial_lr_scale,
+                  adam_on_densify=adam_on_densify)
+    if mp:
+        step = make_mp_train_step(opt, mesh, backend=sharded_render_backend(pipe.backend),
+                                  **common)
+    elif mesh is not None:
+        step = make_dp_train_step(opt, mesh, backend=pipe.backend, **common)
+    else:
+        step = make_train_step(opt, backend=pipe.backend, **common)
+
+    def place(params, adam, aux):
+        """Whole state -> the step's layout: per-slot chunks (mp) or
+        replicas (dp)."""
+        if mp:
+            return shard_state(params, adam, aux, mesh)
+        if mesh is not None:
+            return replicate(params, mesh), replicate(adam, mesh), replicate(aux, mesh)
+        return params, adam, aux
+
+    def gathered(params, adam, aux):
+        """The inverse of place, on `device`."""
+        if mp:
+            return gather_state(params, adam, aux, device)
+        if mesh is not None:
+            return params[0], adam[0], aux[0]
+        return params, adam, aux
     densify_step = make_densify_step(opt, extent=scene.cameras_extent)
     # split noise: drawn on the host from the seed, so a CPU and a CUDA run
     # of the same scene place the same children
@@ -103,7 +147,7 @@ def training(dataset: ModelParams, opt: OptimizationParams,
             viewpoint_stack = list(range(len(train_cams)))
         return viewpoint_stack.pop(rnd.randint(0, len(viewpoint_stack) - 1))
 
-    params, aux = state.params, state.aux
+    params, adam, aux = place(state.params, adam, state.aux)
     ema = {"loss": 0.0, "dist": 0.0, "normal": 0.0, "dino": 0.0}
     t_start = time.time()
 
@@ -111,9 +155,19 @@ def training(dataset: ModelParams, opt: OptimizationParams,
         if iteration % 1000 == 0 and state.active_sh_degree < state.max_sh_degree:
             state = state.oneup_sh_degree()
 
-        idx = pop_view()
-        params, adam, aux, metrics, _ = step(params, adam, aux, cam_params[idx],
-                                             gt_images[idx], iteration)
+        if mesh is None or mp:
+            idx = pop_view()
+            params, adam, aux, metrics, _ = step(params, adam, aux, cam_params[idx],
+                                                 gt_images[idx], iteration)
+        else:
+            idxs = [pop_view() for _ in range(n_devices)]
+            batched = BatchedCameras.stack([cam_params[i] for i in idxs])
+            gts = torch.stack([gt_images[i] for i in idxs])
+            params, adam, aux, metrics, _ = step(
+                params, adam, aux, shard_batch(batched, mesh), shard_batch(gts, mesh),
+                iteration)
+            # the step's dist is the mean over the D views: no one view
+            idx = -1
 
         if iteration % log_every == 0 or iteration == opt.iterations:
             m = {k: float(v) for k, v in metrics._asdict().items()}
@@ -146,38 +200,51 @@ def training(dataset: ModelParams, opt: OptimizationParams,
                 _flush_log(stat_log_path, stat_fields, stat_rows)
 
         if iteration in testing_iterations:
-            state = state.replace(params=params, aux=aux)
-            report_eval(scene, state, pipe, dataset, iteration, tb=tb, device=device)
+            if mp:   # eval renders the per-slot chunks through the sharded fold
+                chunks = [state.replace(params=p, aux=x) for p, x in zip(params, aux)]
+                report_eval(scene, chunks, pipe, dataset, iteration, tb=tb,
+                            device=device, mesh=mesh)
+            else:
+                p, _, x = gathered(params, adam, aux)
+                report_eval(scene, state.replace(params=p, aux=x), pipe, dataset,
+                            iteration, tb=tb, device=device)
 
         if iteration in saving_iterations:
             print(f"\n[ITER {iteration}] Saving Gaussians")
-            scene.save(iteration, state.replace(params=params, aux=aux))
+            p, _, x = gathered(params, adam, aux)
+            scene.save(iteration, state.replace(params=p, aux=x))
 
         if iteration < opt.densify_until_iter:
-            if (iteration > opt.densify_from_iter
-                    and iteration % opt.densification_interval == 0):
-                state = state.replace(params=params, aux=aux)
+            densify_now = (iteration > opt.densify_from_iter
+                           and iteration % opt.densification_interval == 0)
+            reset_now = (iteration % opt.opacity_reset_interval == 0
+                         or (dataset.white_background
+                             and iteration == opt.densify_from_iter))
+            if densify_now or reset_now:
+                p, adam, x = gathered(params, adam, aux)
+                state = state.replace(params=p, aux=x)
+            if densify_now:
                 use_size = iteration > opt.opacity_reset_interval
                 state, adam, n_drop = densify_step(state, adam, gen, use_size)
                 if n_drop > 0:
-                    state, adam = _grow(state, adam, n_drop)
-                params, aux = state.params, state.aux
-            if (iteration % opt.opacity_reset_interval == 0
-                    or (dataset.white_background
-                        and iteration == opt.densify_from_iter)):
-                state, adam = reset_opacity(state.replace(params=params, aux=aux), adam)
-                params, aux = state.params, state.aux
+                    state, adam = _grow(state, adam, n_drop,
+                                        multiple=n_devices if mp else 1)
+            if reset_now:
+                state, adam = reset_opacity(state, adam)
+            if densify_now or reset_now:
+                params, adam, aux = place(state.params, adam, state.aux)
 
         if iteration in checkpoint_iterations:
             print(f"\n[ITER {iteration}] Saving Checkpoint")
-            state = state.replace(params=params, aux=aux)
+            p, a, x = gathered(params, adam, aux)
             save_checkpoint(os.path.join(dataset.model_path, f"chkpnt{iteration}.npz"),
-                            state, adam, iteration)
+                            state.replace(params=p, aux=x), a, iteration)
 
     _flush_log(loss_log_path, log_fields, log_rows)
     _flush_log(stat_log_path, stat_fields, stat_rows)
     if tb is not None:
         tb.close()
+    params, adam, aux = gathered(params, adam, aux)
     return state.replace(params=params, aux=aux), adam
 
 
@@ -190,15 +257,18 @@ def _flush_log(path, fields, rows):
         rows.clear()
 
 
-def _grow(state, adam: AdamState, dropped: int = 0):
+def _grow(state, adam: AdamState, dropped: int = 0, multiple: int = 1):
     """Grow the arena after densify overflowed, in 1.25x steps rounded to
     capacity/8, covering this pass's dropped splats so one growth
-    suffices. The dropped splats stay lost, as in the JAX package."""
+    suffices, then up to a multiple of `multiple` (the slot count of
+    Gaussian-sharded state). The dropped splats stay lost, as in the JAX
+    package."""
     cap = state.capacity
     gran = max(cap // 8, 16)
     need = int(state.n_active) + int(dropped) + gran
     new_cap = max(int(cap * 1.25), cap + gran, need)
     new_cap = -(-new_cap // gran) * gran
+    new_cap = -(-new_cap // multiple) * multiple
     print(f"[capacity] growing {cap} -> {new_cap}")
     grown = grow_capacity(state, new_cap)
     pad = new_cap - cap
@@ -211,10 +281,13 @@ def _grow(state, adam: AdamState, dropped: int = 0):
 
 @torch.no_grad()
 def report_eval(scene: Scene, state, pipe, dataset, iteration, tb=None,
-                device="cuda"):
+                device="cuda", mesh=None):
     """In-loop eval of the test cameras and 5 train cameras: mean L1, PSNR
     and SSIM of the clipped renders, printed and written to
-    eval_<iteration>.json."""
+    eval_<iteration>.json. With `mesh`, `state` is the Gaussian-sharded
+    training state's per-slot chunks, rendered through the sharded
+    backend."""
+    backend = pipe.backend if mesh is None else sharded_render_backend(pipe.backend)
     configs = [("test", scene.get_test_cameras())]
     train_cams = scene.get_train_cameras()
     if train_cams:
@@ -229,7 +302,7 @@ def report_eval(scene: Scene, state, pipe, dataset, iteration, tb=None,
         tot = {"l1": 0.0, "psnr": 0.0, "ssim": 0.0}
         for vi, cam in enumerate(cams):
             pkg = render(cam.params(device), state, bg, depth_ratio=pipe.depth_ratio,
-                         backend=pipe.backend)
+                         backend=backend, mesh=mesh)
             img = torch.clamp(pkg["render"], 0, 1)
             gt = torch.clamp(torch.as_tensor(cam.image, device=device), 0, 1)
             if tb is not None and vi < 5:
@@ -288,8 +361,10 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--gui", action="store_true",
                         help="serve the live viewer during training")
     parser.add_argument("--n_devices", type=int, default=1,
-                        help="multi-device training over this many devices")
-    parser.add_argument("--parallel_mode", type=str, default="dp", choices=["dp", "mp"])
+                        help="train over this many device slots (see --parallel_mode)")
+    parser.add_argument("--parallel_mode", type=str, default="dp", choices=["dp", "mp"],
+                        help="dp: camera data-parallel, state replicated; mp: "
+                             "Gaussian-sharded, state in per-slot chunks")
     parser.add_argument("--adam_on_densify", type=str, default="drop",
                         choices=["apply", "drop"],
                         help="'drop' (default) skips the Adam update on densify "
@@ -302,10 +377,7 @@ def build_parser() -> ArgumentParser:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, on, where in (("--n_devices > 1", args.n_devices > 1, "multi-device"),
-                            ("--parallel_mode mp", args.parallel_mode == "mp",
-                             "multi-device"),
-                            ("--gui", args.gui, "viewer"),
+    for flag, on, where in (("--gui", args.gui, "viewer"),
                             ("--run_segmentation", args.run_segmentation,
                              "semantics")):
         if on:
@@ -331,7 +403,8 @@ def main(argv=None):
                        dino_start_iter=args.dino_start_iter,
                        dino_mode=args.dino_mode, seed=args.seed, quiet=args.quiet,
                        capacity=args.capacity, tensorboard=not args.no_tensorboard,
-                       adam_on_densify=args.adam_on_densify, device=device)
+                       adam_on_densify=args.adam_on_densify, device=device,
+                       n_devices=args.n_devices, parallel_mode=args.parallel_mode)
     print("\nTraining complete.")
     return out
 

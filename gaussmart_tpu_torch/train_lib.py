@@ -36,19 +36,30 @@ class StepMetrics(NamedTuple):
     n_dropped: torch.Tensor
 
 
-def _loss_and_aux(params: GaussianParams, means2d, aux_state: GaussianAux,
-                  cam: CameraParams, gt_image, iteration: int,
-                  opt: OptimizationParams, bg, sh_degree: int,
+def _render_inputs(params: GaussianParams, aux_state: GaussianAux) -> dict:
+    return dict(xyz=params.xyz, scaling=torch.exp(params.scaling),
+                rotation=params.rotation, opacity=torch.sigmoid(params.opacity[:, 0]),
+                features=torch.cat([params.features_dc, params.features_rest], dim=1),
+                active=aux_state.active)
+
+
+def _loss_and_aux(params, means2d, aux_state, cam: CameraParams, gt_image,
+                  iteration: int, opt: OptimizationParams, bg, sh_degree: int,
                   depth_ratio: float, backend: str,
-                  dino_fn: Optional[Callable], phase: Callable[[str], None]):
+                  dino_fn: Optional[Callable] = None,
+                  phase: Optional[Callable[[str], None]] = None, mesh=None):
+    """Render, losses and metrics of one view. With a Gaussian-sharded
+    backend and `mesh`, params, means2d and aux_state are lists of per-slot
+    chunks, and extras["radii"] is too."""
+    mark = phase or (lambda name: None)
+    if isinstance(params, list):
+        chunks = [_render_inputs(p, a) for p, a in zip(params, aux_state)]
+        arrays = {k: [c[k] for c in chunks] for k in chunks[0]}
+    else:
+        arrays = _render_inputs(params, aux_state)
     pkg = render_arrays(
         cam,
-        xyz=params.xyz,
-        scaling=torch.exp(params.scaling),
-        rotation=params.rotation,
-        opacity=torch.sigmoid(params.opacity[:, 0]),
-        features=torch.cat([params.features_dc, params.features_rest], dim=1),
-        active=aux_state.active,
+        **arrays,
         sh_degree=sh_degree,
         bg_color=bg,
         means2d=means2d,
@@ -58,8 +69,9 @@ def _loss_and_aux(params: GaussianParams, means2d, aux_state: GaussianAux,
         # are masked to zero
         active_degree=min(max(iteration // 1000, 0), sh_degree),
         need_dist_grad=(opt.lambda_dist != 0.0),
+        mesh=mesh,
     )
-    phase("render")
+    mark("render")
     image = pkg["render"]
     loss, ll1 = photometric_loss(image, gt_image, opt.lambda_dssim)
     dist_loss, normal_loss = regularization_losses(
@@ -70,13 +82,53 @@ def _loss_and_aux(params: GaussianParams, means2d, aux_state: GaussianAux,
     if dino_fn is not None:
         dino = dino_fn(image, gt_image, iteration)
     total = loss + dist_loss + normal_loss + dino
-    phase("losses")
+    mark("losses")
     with torch.no_grad():
         mse = torch.mean((torch.clamp(image, 0, 1) - torch.clamp(gt_image, 0, 1)) ** 2)
         psnr = 20.0 * torch.log10(1.0 / torch.sqrt(torch.clamp_min(mse, 1e-12)))
     extras = dict(radii=pkg["radii"], l1=ll1, dist=dist_loss, normal=normal_loss,
                   dino=dino, psnr=psnr, n_dropped=pkg["n_dropped"])
     return total, extras
+
+
+def _leaves(params: GaussianParams) -> GaussianParams:
+    """Fresh autograd leaves holding `params`' values."""
+    return GaussianParams(**{n: getattr(params, n).detach().requires_grad_()
+                             for n in NAMES})
+
+
+def _grads(leaves: GaussianParams) -> GaussianParams:
+    return GaussianParams(**{n: (getattr(leaves, n).grad if getattr(leaves, n).grad
+                                 is not None else torch.zeros_like(getattr(leaves, n)))
+                             for n in NAMES})
+
+
+def _check_adam_on_densify(adam_on_densify: str):
+    if adam_on_densify not in ("apply", "drop"):
+        raise ValueError(f"adam_on_densify={adam_on_densify!r}: expected 'apply' or 'drop'")
+
+
+def _drops_adam(opt: OptimizationParams, iteration: int, adam_on_densify: str) -> bool:
+    """adam_on_densify="drop" skips the Adam update on densify iterations."""
+    return (adam_on_densify == "drop" and iteration < opt.densify_until_iter
+            and iteration > opt.densify_from_iter
+            and iteration % opt.densification_interval == 0)
+
+
+@torch.no_grad()
+def _apply_update(params: GaussianParams, grads: GaussianParams, adam: AdamState,
+                  aux_state: GaussianAux, means2d_grad: torch.Tensor,
+                  radii: torch.Tensor, iteration: int, opt: OptimizationParams,
+                  spatial_lr_scale: float, adam_on_densify: str):
+    """Densify statistics inside the densify window, then the masked Adam
+    step, skipped on densify iterations under adam_on_densify="drop".
+    Returns (params, adam, aux_state)."""
+    if iteration < opt.densify_until_iter:
+        aux_state = add_densification_stats(aux_state, means2d_grad, radii)
+    if not _drops_adam(opt, iteration, adam_on_densify):
+        lrs = group_lrs(opt, iteration, spatial_lr_scale)
+        params, adam = adam_step(params, grads, adam, lrs, aux_state.active)
+    return params, adam, aux_state
 
 
 def make_train_step(opt: OptimizationParams, *, sh_degree: int,
@@ -94,8 +146,7 @@ def make_train_step(opt: OptimizationParams, *, sh_degree: int,
     given, is called with "render", "losses", "backward" and "adam" as each
     stage of the step has been issued (chip_smoke.py records a CUDA event
     there for its per-stage breakdown)."""
-    if adam_on_densify not in ("apply", "drop"):
-        raise ValueError(f"adam_on_densify={adam_on_densify!r}: expected 'apply' or 'drop'")
+    _check_adam_on_densify(adam_on_densify)
     bg_values = [1.0, 1.0, 1.0] if white_background else [0.0, 0.0, 0.0]
     mark = phase or (lambda name: None)
 
@@ -103,8 +154,7 @@ def make_train_step(opt: OptimizationParams, *, sh_degree: int,
              cam: CameraParams, gt_image: torch.Tensor, iteration: int):
         dev = params.xyz.device
         bg = torch.tensor(bg_values, dtype=torch.float32, device=dev)
-        leaves = GaussianParams(**{n: getattr(params, n).detach().requires_grad_()
-                                   for n in NAMES})
+        leaves = _leaves(params)
         means2d = torch.zeros((params.xyz.shape[0], 2), dtype=torch.float32,
                               device=dev, requires_grad=True)
         total, extras = _loss_and_aux(leaves, means2d, aux_state, cam, gt_image,
@@ -112,29 +162,21 @@ def make_train_step(opt: OptimizationParams, *, sh_degree: int,
                                       backend, dino_fn, mark)
         total.backward()
         mark("backward")
-        grads = GaussianParams(**{
-            n: (getattr(leaves, n).grad if getattr(leaves, n).grad is not None
-                else torch.zeros_like(getattr(params, n))) for n in NAMES})
-
-        with torch.no_grad():
-            in_window = iteration < opt.densify_until_iter
-            if in_window:
-                aux_state = add_densification_stats(aux_state, means2d.grad,
-                                                    extras["radii"])
-            is_densify = (in_window and iteration > opt.densify_from_iter
-                          and iteration % opt.densification_interval == 0)
-            if not (adam_on_densify == "drop" and is_densify):
-                lrs = group_lrs(opt, iteration, spatial_lr_scale)
-                params, adam = adam_step(params, grads, adam, lrs, aux_state.active)
-            metrics = StepMetrics(
-                total=total.detach(), l1=extras["l1"].detach(),
-                dist=extras["dist"].detach(), normal=extras["normal"].detach(),
-                dino=extras["dino"].detach(), psnr=extras["psnr"],
-                n_active=aux_state.active.sum(), n_dropped=extras["n_dropped"])
+        params, adam, aux_state = _apply_update(
+            params, _grads(leaves), adam, aux_state, means2d.grad, extras["radii"],
+            iteration, opt, spatial_lr_scale, adam_on_densify)
+        metrics = _metrics(total, extras, aux_state.active.sum())
         mark("adam")
         return params, adam, aux_state, metrics, iteration + 1
 
     return step
+
+
+def _metrics(total, extras, n_active) -> StepMetrics:
+    return StepMetrics(total=total.detach(), l1=extras["l1"].detach(),
+                       dist=extras["dist"].detach(), normal=extras["normal"].detach(),
+                       dino=extras["dino"].detach(), psnr=extras["psnr"],
+                       n_active=n_active, n_dropped=extras["n_dropped"])
 
 
 def make_densify_step(opt: OptimizationParams, *, extent: float):

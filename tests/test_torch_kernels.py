@@ -1,10 +1,12 @@
-"""The forward compositor K1 (raster_fwd) and the binning that feeds it,
-without JAX, so the card-only cases also run where no JAX is installed:
+"""The tile compositor's kernels (K1 raster_fwd, K2 raster_bwd, their
+seeded variants K3 and K4, and K5 segsum) and the binning that feeds
+them, without JAX, so the card-only cases also run where no JAX is
+installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-On the CPU the wrapper takes the plain version and the card-only cases
-skip; on a CUDA card they hold raster_fwd against composite_tiles_plain."""
+On the CPU each wrapper takes its plain version and the card-only cases
+skip; on a CUDA card they hold each kernel against its plain version."""
 import numpy as np
 import pytest
 import torch
@@ -223,3 +225,126 @@ def test_segsum_kernel_matches_plain_on_card(n_seg, max_count):
     assert out.shape == (n_seg, 20) and _column_err(out, ref) <= 1e-5
     with pytest.raises(ValueError, match="seg_ids"):
         segsum.segment_sum_sorted(rows, ids.long(), n_seg)
+
+
+def _seed_maps(width, height, device, seed=3):
+    """A per-pixel seed [3, H_pad, W_pad] (T0, M1_0, M2_0) as a nearer
+    stratum leaves it, T0 = 0 on a band of terminated pixels, the identity
+    (1, 0, 0) past the image's edge."""
+    rng = np.random.default_rng(seed)
+    tx, ty = rt.tile_grid(width, height)
+    init = torch.zeros((3, 16 * ty, 16 * tx))
+    init[0] = 1.0
+    for c, (lo, hi) in enumerate(((0.3, 1.0), (0.0, 0.3), (0.0, 0.2))):
+        init[c, :height, :width] = torch.tensor(
+            rng.uniform(lo, hi, (height, width)).astype(np.float32))
+    init[0, :height, :5] = 0.0
+    return init.to(device)
+
+
+def _seeded_cotangent(fb, seed=1):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.normal(size=(rt.CT_SEEDED,) + tuple(fb.shape[1:]))
+                        .astype(np.float32), device=fb.device)
+
+
+def test_seeded_compositor_on_cpu_is_the_plain_version():
+    """K3 and K4 (composite_tiles / composite_tiles_bwd given a seed) on CPU
+    tensors are their plain versions and launch nothing."""
+    prep, width, height = _prep("ragged")
+    blob, ids, ranges = _binned(prep, width, height)
+    init = _seed_maps(width, height, "cpu")
+    before = (rt.launches, rt.bwd_launches, rt.seeded_launches, rt.seeded_bwd_launches)
+    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height, init=init)
+    fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height, init=init)
+    assert torch.equal(fb, fb_p) and torch.equal(ints, ints_p)
+    ct = _seeded_cotangent(fb)
+    rows, gi = rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height,
+                                      init=init)
+    rows_p, gi_p = rt.composite_tiles_bwd_plain(blob, ids, ranges, fb, ints, ct, width,
+                                                height, init=init)
+    assert torch.equal(rows, rows_p) and torch.equal(gi, gi_p)
+    assert gi.shape == init.shape
+    assert (rt.launches, rt.bwd_launches, rt.seeded_launches,
+            rt.seeded_bwd_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_seeded_kernel_matches_plain_on_card(scene):
+    """raster_fwd_seeded (K3) against composite_tiles_plain with the same
+    seed, at chip_smoke.py's limits (1e-4 on every float channel, 99.9% of
+    pixels for n_contrib and med_e)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: raster_fwd_seeded runs only on the card")
+    prep, width, height = _prep(scene, device="cuda")
+    blob, ids, ranges = _binned(prep, width, height)
+    init = _seed_maps(width, height, "cuda")
+    before = (rt.launches, rt.seeded_launches)
+    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height, init=init)
+    assert (rt.launches, rt.seeded_launches) == (before[0], before[1] + 1)
+    fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height, init=init)
+    torch.cuda.synchronize()
+    assert (fb - fb_p).abs().max().item() <= 1e-4
+    assert (ints == ints_p).float().mean().item() >= 0.999
+    with pytest.raises(ValueError, match="init"):
+        rt.composite_tiles(blob, ids, ranges, width, height, init=init[:2].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", list(SCENES))
+@pytest.mark.parametrize("need", [(True, True), (False, False)])
+def test_seeded_backward_kernel_matches_plain_on_card(scene, need):
+    """raster_bwd_seeded (K4) against composite_tiles_bwd_plain with the
+    same seed and a random cotangent on the 13 channels: the rows and the
+    seed gradient, each column within 1e-4 of its largest value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: raster_bwd_seeded runs only on the card")
+    prep, width, height = _prep(scene, device="cuda")
+    blob, ids, ranges = _binned(prep, width, height)
+    init = _seed_maps(width, height, "cuda")
+    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height, init=init)
+    ct = _seeded_cotangent(fb)
+    before = (rt.bwd_launches, rt.seeded_bwd_launches)
+    rows, gi = rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height,
+                                      *need, init=init)
+    assert (rt.bwd_launches, rt.seeded_bwd_launches) == (before[0], before[1] + 1)
+    ref, gi_p = rt.composite_tiles_bwd_plain(blob, ids, ranges, fb, ints, ct, width,
+                                             height, *need, init=init)
+    torch.cuda.synchronize()
+    assert _column_err(rows, ref) <= 1e-4
+    assert _column_err(gi.reshape(3, -1).T, gi_p.reshape(3, -1).T) <= 1e-4
+    with pytest.raises(ValueError, match="ct"):
+        rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct[:rt.CT].contiguous(),
+                               width, height, *need, init=init)
+
+
+@pytest.mark.cuda
+def test_seeded_render_on_card_never_takes_the_plain_versions(monkeypatch):
+    """rasterize_tiled(init_state=...) and its backward on CUDA tensors
+    launch K3 and K4 once each; the plain versions are never reached."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the seeded kernels run only on the card")
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    monkeypatch.setattr(rt, "composite_tiles_plain", refuse)
+    monkeypatch.setattr(rt, "composite_tiles_bwd_plain", refuse)
+    prep, width, height = _prep("ragged", device="cuda")
+    n = prep.depth.shape[0]
+    P = width * height
+    rng = np.random.default_rng(4)
+    init = {k: torch.tensor(rng.uniform(lo, hi, P).astype(np.float32), device="cuda",
+                            requires_grad=True)
+            for k, lo, hi in (("T", 0.3, 1.0), ("M1", 0.0, 0.3), ("M2", 0.0, 0.2))}
+    means2d = torch.zeros(n, 2, device="cuda", requires_grad=True)
+    before = (rt.seeded_launches, rt.seeded_bwd_launches)
+    out = rt.rasterize_tiled(prep, means2d, torch.zeros(3, device="cuda"), width, height,
+                             init_state=init, return_raw=True)
+    loss = (out["image"].sum() + out["allmap"].sum() + out["raw"]["T"].sum()
+            + out["raw"]["M1"].sum() + out["raw"]["M2"].sum())
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (rt.seeded_launches, rt.seeded_bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(v.grad).all() for v in init.values())
+    assert torch.isfinite(means2d.grad).all() and means2d.grad.abs().sum() > 0

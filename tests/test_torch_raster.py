@@ -171,7 +171,7 @@ def test_render_arrays_matches_jax_and_checks_backend():
     np.testing.assert_allclose(tiled["render"], ref["render"], atol=6e-3)
     np.testing.assert_allclose(tiled["rend_alpha"], ref["rend_alpha"], atol=3e-2)
     for backend in ("gaussian_sharded", "gaussian_sharded_pallas", "row_sharded"):
-        with pytest.raises(NotImplementedError, match="multi-device"):
+        with pytest.raises(ValueError, match="needs mesh"):
             t_render_arrays(tcam.params("cpu"), backend=backend, **kw)
     with pytest.raises(ValueError, match="unknown backend"):
         t_render_arrays(tcam.params("cpu"), backend="tpu", **kw)

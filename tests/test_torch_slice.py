@@ -124,21 +124,27 @@ def test_cli_renders_match_jax_extractor(tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Importing every module of the port and chip_smoke.py, and running
-    the render CLI and the train CLI, leaves neither jax nor gaussmart_tpu
-    in sys.modules."""
+    """Importing every module of the port (gaussmart_tpu_torch.parallel
+    too) and chip_smoke.py, and running the render CLI and the train CLI,
+    each also over 2 device slots (--shard_mode gaussian; dp and mp),
+    leaves neither jax nor gaussmart_tpu in sys.modules."""
     model, cfg = _model_dir(str(tmp_path), n=40)
     src, out = cfg["source_path"], str(tmp_path / "trained")
     code = f"""
 import importlib, pkgutil, sys
-import gaussmart_tpu_torch, chip_smoke
+import gaussmart_tpu_torch, gaussmart_tpu_torch.parallel, chip_smoke
 for m in pkgutil.walk_packages(gaussmart_tpu_torch.__path__, "gaussmart_tpu_torch."):
     importlib.import_module(m.name)
 from gaussmart_tpu_torch import render_cli, train
 render_cli.main(["-m", {model!r}, "--skip_mesh", "--device", "cpu", "--skip_test"])
-train.main(["-s", {src!r}, "-m", {out!r}, "--sh_degree", "1", "--iterations", "3",
-            "--test_iterations", "3", "--device", "cpu", "--no_tensorboard", "--quiet",
-            "--capacity", "256", "--dino_mode", "off"])
+render_cli.main(["-m", {model!r}, "--skip_mesh", "--device", "cpu", "--skip_train",
+                 "--n_devices", "2", "--shard_mode", "gaussian"])
+args = ["-s", {src!r}, "--sh_degree", "1", "--iterations", "3", "--test_iterations", "3",
+        "--device", "cpu", "--no_tensorboard", "--quiet", "--capacity", "256",
+        "--dino_mode", "off"]
+train.main(args + ["-m", {out!r}])
+train.main(args + ["-m", {out + "_dp"!r}, "--n_devices", "2"])
+train.main(args + ["-m", {out + "_mp"!r}, "--n_devices", "2", "--parallel_mode", "mp"])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gaussmart_tpu"))
 assert not bad, bad
 print("CLEAN")
@@ -150,17 +156,17 @@ print("CLEAN")
     assert "CLEAN" in res.stdout
     assert os.path.exists(os.path.join(model, "train", f"ours_{ITER}", "renders",
                                        "00002.png"))
-    assert os.path.exists(os.path.join(out, "point_cloud", "iteration_3", "point_cloud.ply"))
-    assert os.path.exists(os.path.join(out, "eval_3.json"))
+    assert os.path.exists(os.path.join(model, "test", f"ours_{ITER}", "renders",
+                                       "00000.png"))
+    for o in (out, out + "_dp", out + "_mp"):
+        assert os.path.exists(os.path.join(o, "point_cloud", "iteration_3", "point_cloud.ply"))
+        assert os.path.exists(os.path.join(o, "eval_3.json"))
 
 
 def test_cli_refuses_what_this_slice_does_not_serve(tmp_path, monkeypatch):
     model, cfg = _model_dir(str(tmp_path), n=10)
     with pytest.raises(NotImplementedError, match="TSDF"):
         render_cli.main(["-m", model, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        render_cli.main(["-m", model, "--skip_mesh", "--device", "cpu",
-                         "--n_devices", "2"])
     # a new model starts from the scene's point cloud as in the JAX package:
     # the same initial params and aux, camera order and extent, and copies
     jdir, tdir = str(tmp_path / "jax_new"), str(tmp_path / "port_new")

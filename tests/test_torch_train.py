@@ -433,8 +433,6 @@ def test_train_cli_on_cpu_writes_the_jax_outputs(tmp_path, rng):
     assert (out / "point_cloud" / "iteration_32" / "point_cloud.ply").exists()
     with open(out / "dino_loss_log.csv") as f:
         assert [int(r["iteration"]) for r in csv.DictReader(f)] == [32]
-    for bad, match in ((["--n_devices", "2"], "multi-device"),
-                       (["--parallel_mode", "mp"], "multi-device"),
-                       (["--gui"], "viewer"), (["--run_segmentation"], "semantics")):
+    for bad, match in ((["--gui"], "viewer"), (["--run_segmentation"], "semantics")):
         with pytest.raises(NotImplementedError, match=match):
             ttrain.main(common + bad)
