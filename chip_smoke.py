@@ -7,7 +7,9 @@ and over device slots, on one CUDA card and check them.
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build every kernel from csrc/ with nvcc (sm_90a), one nvcc process per
-     source, all started together, each timed;
+     source, all started together, each timed; registers, shared memory
+     and spill bytes of every kernel variant from ptxas (a raster_bwd
+     variant that spills fails);
   3. each kernel against its plain PyTorch version on the same inputs:
      raster_fwd (K1), raster_bwd (K2) with a fixed-seed cotangent, segsum
      (K5) on K2's rows, and the per-splat gradients under
@@ -15,8 +17,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      full width; raster_fwd_seeded (K3) and raster_bwd_seeded (K4) on the
      second of N_SLOTS depth strata of each frame, seeded as the
      Gaussian-sharded fold seeds it, and on the training frame's first
-     from the identity seed (pass 1); the tiled render and its gradients
-     against the dense oracle on the small scene;
+     from the identity seed (pass 1); K2 and K4 launched twice, the two
+     bit-equal; the tiled render and its gradients against the dense
+     oracle on the small scene;
   4. the serving path: a trained-model directory (100k splats, SH degree 3,
      8 views at 776x584, made from --seed) rendered by
      gaussmart_tpu_torch.render_cli, its saved renders held against
@@ -38,7 +41,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      Gaussian-sharded over N_SLOTS slots (iterations/s, per-stage
      breakdown, device busy share from torch.profiler), and each kernel,
      its plain version and the library call that computes the same
-     function; each kernel's bound from this run's inputs.
+     function; each kernel's bound from this run's inputs; K2 and K4 also
+     with the distortion and median terms; K3 and K4 on each of the 8
+     launches of one Gaussian-sharded step (recorded from the step
+     itself), with their sums per step.
 N_SLOTS slots on one card measure the cost of the two-pass fold, not
 scaling across cards.
 Each path's kernel launch counts are set to 0 just before it runs and read
@@ -52,6 +58,7 @@ import argparse
 import csv
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -79,6 +86,9 @@ KERNELS = {"raster_fwd": ("raster_fwd", "gaussmart_tpu/render/raster_pallas.py:3
            "raster_fwd_seeded": ("raster_fwd", "gaussmart_tpu/render/raster_pallas.py:327"),
            "raster_bwd_seeded": ("raster_bwd", "gaussmart_tpu/render/raster_pallas.py:499")}
 SOURCES = ("raster_fwd", "raster_bwd", "segsum")
+# the template parameters of the kernels' variants, for the ptxas report
+TEMPLATE_PARAMS = {"raster_fwd_kernel": ("seeded",),
+                   "raster_bwd_kernel": ("need_dist", "need_med", "seeded")}
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -138,9 +148,29 @@ def build_all():
         for name, dt, log in pool.map(one, SOURCES):
             print(f"[build] {name} built with nvcc {' '.join(kernels.NVCC_FLAGS)} "
                   f"in {dt:.2f} s")
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[build] {name}: {line.strip()}")
+            for kernel, regs, smem, spills in ptxas_report(log):
+                print(f"[build] {name}: {kernel}: {regs} registers, {smem} bytes "
+                      f"shared memory, spill stores + loads {spills} bytes")
+                if name == "raster_bwd" and spills:
+                    fail(f"[build] {kernel} spills registers")
+
+
+def ptxas_report(log):
+    """[(kernel with its template arguments, registers, shared-memory bytes,
+    spill store + load bytes)] per entry function of an `nvcc -Xptxas -v`
+    report."""
+    out = []
+    for block in log.split("Compiling entry function")[1:]:
+        m = re.search(r"([a-z_]+_kernel)(?:I((?:Lb[01]E)+)E)?", block)
+        flags = re.findall(r"Lb([01])E", m.group(2) or "")
+        names = TEMPLATE_PARAMS.get(m.group(1), ())
+        kernel = m.group(1) + (
+            "<" + ", ".join(f"{n}={f}" for n, f in zip(names, flags)) + ">" if flags else "")
+        spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", block))
+        smem = re.search(r"(\d+) bytes smem", block)
+        out.append((kernel, int(re.search(r"Used (\d+) registers", block).group(1)),
+                    int(smem.group(1)) if smem else 0, spills))
+    return out
 
 
 # --- scenes ---------------------------------------------------------------
@@ -338,6 +368,16 @@ def hold(label, got, ref, tol, per_column=False):
     return abs_err
 
 
+def bit_equal(label, first, second):
+    """Exit unless a second launch's outputs equal the first's bit for bit."""
+    import torch
+    second = second if isinstance(second, tuple) else (second,)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"[compare] {label}: a second launch bit-equal {same}")
+    if not same:
+        fail(f"[compare] {label}: two launches on the same inputs differ")
+
+
 def random_cotangent(fb, width, height, channels, seed=1):
     """A fixed-seed normal cotangent on the image's pixels of the first
     `channels` channels (those that carry one: CT, or CT_SEEDED for the
@@ -385,6 +425,9 @@ def compare_kernels(prep, width, height, label, variants):
         errs["raster_bwd"] = max(errs["raster_bwd"], hold(
             f"{label} raster_bwd need_dist/need_med {need}, rows", rows, ref,
             BWD_TOL, per_column=True))
+        bit_equal(f"{label} raster_bwd need_dist/need_med {need}", (rows,),
+                  rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height,
+                                         *need))
     # K5 as grad_reduce calls it: rows sorted by splat id, the unused
     # entries (id n, the dummy row) left out of the n segments
     seg, perm = torch.sort(ids, stable=True)
@@ -485,6 +528,9 @@ def compare_seeded(prep, width, height, label, variants, k=1):
             # one column per seed channel: T0, M1_0, M2_0
             hold(f"{label} raster_bwd_seeded need_dist/need_med {need}, seed gradient",
                  gi.reshape(3, -1).T, gi_p.reshape(3, -1).T, BWD_TOL, per_column=True))
+        bit_equal(f"{label} raster_bwd_seeded need_dist/need_med {need}", (rows, gi),
+                  rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height,
+                                         *need, init=init))
     return errs, dict(blob=blob, ids=ids, ranges=ranges, fb=fb, ints=ints, ct=ct,
                       init=init, need=variants[-1])
 
@@ -915,6 +961,19 @@ def walk_counts(blob, ids, ranges, fb, ints, width, height):
     return int(k1_evals), int(nc.sum()), int(blends)
 
 
+def warp_walk_evals(ranges, ints, width, height):
+    """(entry, pixel) evaluations that raster_bwd.cu makes: each warp of a
+    tile's 8 (two pixel rows each) evaluates, at all of its 32 pixels, the
+    entries below its pixels' largest n_contrib."""
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    tx, ty = rt.tile_grid(width, height)
+    nc = ints[0].reshape(ty, rt.TILE, tx, rt.TILE).permute(0, 2, 1, 3)
+    warp_max = nc.reshape(tx * ty, 8, 32).amax(dim=2).to(torch.int64)
+    counts = (ranges[:, 1] - ranges[:, 0]).to(torch.int64)[:, None]
+    return int(torch.minimum(warp_max, counts).sum()) * 32
+
+
 def bound(ops, nbytes):
     t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
@@ -939,24 +998,26 @@ def kernel_bounds(io, n_splats, width, height):
     live = int((io["seg"] < n_splats).sum())
     k5 = (live * rt.F, live * (rt.F + 1) * 4 + n_splats * rt.F * 4)
     print(f"[bound] frame: (entry, pixel) evaluations {k1_evals} in raster_fwd, "
-          f"{k2_evals} below n_contrib in raster_bwd, {blends} of them blended")
+          f"{k2_evals} below n_contrib in raster_bwd, {blends} of them blended; "
+          f"raster_bwd's warps evaluate {warp_walk_evals(ranges, ints, width, height)}")
     return report_bounds(("raster_fwd", "raster_bwd", "segsum"), (k1, k2, k5))
 
 
-def report_bounds(names, works):
+def report_bounds(names, works, show=True):
     out = {}
     for name, (ops, nbytes) in zip(names, works):
         out[name] = bound(ops, nbytes) + (ops, nbytes)
-        print(f"[bound] {name}: {ops:.4g} f32 ops, {nbytes:.4g} bytes -> "
-              f"{out[name][0]:.4f} ms, bound by {out[name][1]}")
+        if show:
+            print(f"[bound] {name}: {ops:.4g} f32 ops, {nbytes:.4g} bytes -> "
+                  f"{out[name][0]:.4f} ms, bound by {out[name][1]}")
     return out
 
 
-def seeded_bounds(io, width, height):
+def seeded_bounds(io, width, height, show=True):
     """{kernel: (bound_ms, bound_by, ops, bytes)} of K3 and K4 on the seeded
     stratum: K1's and K2's counts on its walk, plus the seed read (K3, K4),
     the two moment cotangent planes, K4's seeded terms per step and the
-    seed gradient written per pixel."""
+    seed gradient written per pixel. `show` prints the counts and bounds."""
     from gaussmart_tpu_torch.render import raster_tiled as rt
     blob, ids, ranges, fb, ints = (io[k] for k in ("blob", "ids", "ranges", "fb", "ints"))
     k3_evals, k4_evals, blends = walk_counts(blob, ids, ranges, fb, ints, width, height)
@@ -971,10 +1032,12 @@ def seeded_bounds(io, width, height):
           + OPS_PER_SEED_GRAD * pixels,
           inputs + (4 + 2 + rt.CT_SEEDED + 3) * plane + ids.numel() * rt.F * 4
           + 3 * plane)
-    print(f"[bound] seeded stratum: (entry, pixel) evaluations {k3_evals} in "
-          f"raster_fwd_seeded, {k4_evals} below n_contrib in raster_bwd_seeded, "
-          f"{blends} of them blended")
-    return report_bounds(("raster_fwd_seeded", "raster_bwd_seeded"), (k3, k4))
+    if show:
+        print(f"[bound] seeded stratum: (entry, pixel) evaluations {k3_evals} in "
+              f"raster_fwd_seeded, {k4_evals} below n_contrib in raster_bwd_seeded, "
+              f"{blends} of them blended; raster_bwd_seeded's warps evaluate "
+              f"{warp_walk_evals(ranges, ints, width, height)}")
+    return report_bounds(("raster_fwd_seeded", "raster_bwd_seeded"), (k3, k4), show)
 
 
 def time_serving(state, cam, device, card):
@@ -1138,6 +1201,93 @@ def time_seeded_kernels(io, width, height):
         }
 
 
+def time_dist_med_bwd(io, width, height):
+    """K2 (K4 when `io` holds a seed) in its (need_dist, need_med) = (True,
+    True) variant, the one a loss with the distortion and median terms
+    runs, on the same frame: median ms."""
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    args = tuple(io[k] for k in ("blob", "ids", "ranges", "fb", "ints", "ct"))
+    with torch.inference_mode():
+        return time_ms(lambda: rt.composite_tiles_bwd(*args, width, height, True, True,
+                                                      init=io.get("init")), FRAMES)
+
+
+def record_mp_launches(state, cams, gts, mesh):
+    """One make_mp_train_step step on camera 0 with K3's and K4's wrappers
+    recording their inputs: the 8 (pass, stratum) launches of the step as
+    render_gaussian_sharded builds them (its depth strata, the identity
+    seed of pass 1, the fold's seeds of pass 2) with the step's own
+    cotangents. Returns [{blob, ids, ranges, fb, ints, ct, init, need}] in
+    launch order of the forward."""
+    from gaussmart_tpu_torch.config import OptimizationParams
+    from gaussmart_tpu_torch.optim import init_adam
+    from gaussmart_tpu_torch.parallel.sharding import make_mp_train_step, shard_state
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    step = make_mp_train_step(OptimizationParams(), mesh,
+                              backend="gaussian_sharded_pallas", sh_degree=SH_DEGREE,
+                              white_background=False, spatial_lr_scale=1.0)
+    params, adam, aux = shard_state(state.params, init_adam(state.params), state.aux, mesh)
+    fwd, bwd = [], []
+    kernels = rt.composite_tiles, rt.composite_tiles_bwd
+
+    def fwd_rec(blob, ids, ranges, width, height, init=None):
+        out = kernels[0](blob, ids, ranges, width, height, init=init)
+        fwd.append(dict(blob=blob, ids=ids, ranges=ranges, fb=out[0], ints=out[1],
+                        init=init))
+        return out
+
+    def bwd_rec(blob, ids, ranges, fb, ints, ct, width, height, need_dist, need_med,
+                init=None):
+        bwd.append(dict(fb=fb, ct=ct, need=(need_dist, need_med)))
+        return kernels[1](blob, ids, ranges, fb, ints, ct, width, height, need_dist,
+                          need_med, init=init)
+
+    rt.composite_tiles, rt.composite_tiles_bwd = fwd_rec, bwd_rec
+    try:
+        step(params, adam, aux, cams[0], gts[0], 1)
+    finally:
+        rt.composite_tiles, rt.composite_tiles_bwd = kernels
+    by_fb = {b["fb"].data_ptr(): b for b in bwd}
+    launches = [dict(f, **by_fb[f["fb"].data_ptr()]) for f in fwd]
+    if len(launches) != 2 * N_SLOTS or any(f["init"] is None for f in launches):
+        fail(f"[step] recorded {len(fwd)} K3 and {len(bwd)} K4 launches of the mp step, "
+             f"expected {2 * N_SLOTS} seeded ones each")
+    return launches
+
+
+def time_mp_launches(launches, width, height, card):
+    """K3 and K4 on each of the mp step's 8 launches: time and bound per
+    launch, and their sums per step."""
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    sums = {"raster_fwd_seeded": [0.0, 0.0], "raster_bwd_seeded": [0.0, 0.0]}
+    for i, io in enumerate(launches):
+        args = (io["blob"], io["ids"], io["ranges"])
+        with torch.inference_mode():
+            ms = {"raster_fwd_seeded": time_ms(
+                      lambda: rt.composite_tiles(*args, width, height, init=io["init"]),
+                      FRAMES),
+                  "raster_bwd_seeded": time_ms(
+                      lambda: rt.composite_tiles_bwd(*args, io["fb"], io["ints"], io["ct"],
+                                                     width, height, *io["need"],
+                                                     init=io["init"]), FRAMES)}
+        bounds = seeded_bounds(io, width, height, show=False)
+        for k in sums:
+            sums[k][0] += ms[k]
+            sums[k][1] += bounds[k][0]
+        t0 = io["init"][0, :height, :width]
+        print(f"[step] {card}: mp step, camera 0, pass {i // N_SLOTS + 1} stratum "
+              f"{i % N_SLOTS + 1} of {N_SLOTS} ({int(io['ranges'][-1, 1])} (splat, tile) "
+              f"pairs, seed T0 mean {t0.mean().item():.4f}): "
+              + "; ".join(f"{k} {ms[k]:.4f} ms, bound {bounds[k][0]:.4f} ms "
+                          f"({bounds[k][1]})" for k in sums))
+    print(f"[step] {card}: per mp step ({2 * N_SLOTS} launches each, median of {FRAMES} "
+          "per launch): " + "; ".join(f"{k} {t:.4f} ms, bound {b:.4f} ms"
+                                      for k, (t, b) in sums.items()))
+    return sums
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1175,12 +1325,12 @@ def main(argv=None):
     # (iterations below 1000), no distortion or median terms in K2 and K4
     prep_t = frame_prep(state_t, cams_t[0], SH_DEGREE, active_degree=0)
     label_t = "full 776x584 training frame"
-    errs_t, io_t = compare_kernels(prep_t, WIDTH, HEIGHT, label_t, [(False, False)])
+    # the training default (False, False) last: its tensors are timed
+    errs_t, io_t = compare_kernels(prep_t, WIDTH, HEIGHT, label_t, both)
     # the Gaussian-sharded step's two shapes: pass 1 (identity seed, where
     # most of its K3/K4 time goes) and pass 2 (the fold's seed)
-    e_pass1, io_pass1 = compare_seeded(prep_t, WIDTH, HEIGHT, label_t, [(False, False)],
-                                       k=0)
-    e_pass2, io_pass2 = compare_seeded(prep_t, WIDTH, HEIGHT, label_t, [(False, False)])
+    e_pass1, io_pass1 = compare_seeded(prep_t, WIDTH, HEIGHT, label_t, both, k=0)
+    e_pass2, io_pass2 = compare_seeded(prep_t, WIDTH, HEIGHT, label_t, both)
     errs_t.update({k: max(e_pass1[k], e_pass2[k]) for k in e_pass1})
     errs = {k: max(errs[k], errs_t[k]) for k in KERNELS}
 
@@ -1219,6 +1369,12 @@ def main(argv=None):
     bounds.update(seeded_bounds(io_pass1, WIDTH, HEIGHT))
     pass2 = time_seeded_kernels(io_pass2, WIDTH, HEIGHT)
     pass2_bounds = seeded_bounds(io_pass2, WIDTH, HEIGHT)
+    print(f"[time] {card}: need_dist/need_med (True, True) on the same frames, median "
+          f"of {FRAMES}: raster_bwd {time_dist_med_bwd(io_t, WIDTH, HEIGHT):.4f} ms "
+          f"(training frame); raster_bwd_seeded "
+          f"{time_dist_med_bwd(io_pass1, WIDTH, HEIGHT):.4f} ms (pass 1's stratum 1)")
+    time_mp_launches(record_mp_launches(state_t, cams_t, gts_t, make_mesh(N_SLOTS, dev)),
+                     WIDTH, HEIGHT, card)
 
     def listed(ts):
         return "; ".join(f"{k} {ms:.4f} ms, plain {p:.4f} ms"

@@ -55,6 +55,7 @@ FB_CHANNELS = ("C0", "C1", "C2", "D", "A", "N0", "N1", "N2", "med", "dist",
 CT = 11             # channels with cotangents: C0..2 D A N0..2 med dist T
 CT_SEEDED = 13      # the seeded core's: also M1 and M2 (they feed the fold)
 FARNEAR = (FAR_PLANE * NEAR_PLANE) / (FAR_PLANE - NEAR_PLANE)  # d(mapped)/d(depth) * depth^2
+MAPPED_SCALE = FAR_PLANE / (FAR_PLANE - NEAR_PLANE)             # mapped_depth's factor
 GRAD_REDUCE_MODES = ("compact", "scatter", "segsum")
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
 _SEEDED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
@@ -479,15 +480,17 @@ def composite_tiles_bwd_plain(blob: torch.Tensor, entry_ids: torch.Tensor,
         dLdw = (r[14] * dC0 + r[15] * dC1 + r[16] * dC2 + depth * dD + dA
                 + r[17] * dN0 + r[18] * dN1 + r[19] * dN2)
         if need_dist or seeded:
-            m = torch.where(contrib, mapped_depth(dsafe), 0.0)
+            # one reciprocal of the depth for m and dm/dd, as the kernel
+            # takes it; m rounds as mapped_depth(dsafe) does
+            inv_d = 1.0 / dsafe
+            m = torch.where(contrib, MAPPED_SCALE * (1.0 - inv_d * NEAR_PLANE), 0.0)
+            dm_dd = (inv_d * inv_d) * FARNEAR
         if need_dist:
             dLdw = dLdw + (m * m * A_eff + M2_n - 2.0 * m * M1_n) * dDist
         if seeded:
             dLdw = dLdw + m * dM1 + m * m * dM2
         dLdalpha = torch.where(contrib, T_before * dLdw - (S + TdT) * inv_oma, 0.0)
         dLdd = w * dD
-        if need_dist or seeded:
-            dm_dd = FARNEAR / (dsafe * dsafe)
         if need_dist:
             dLdd = dLdd + dDist * 2.0 * w * (m * A_eff - M1_n) * dm_dd
         if seeded:
@@ -552,6 +555,9 @@ def composite_tiles_bwd(blob: torch.Tensor, entry_ids: torch.Tensor,
                          f"{tuple(tile_ranges.shape)}, fb {tuple(fb.shape)}, ints "
                          f"{tuple(ints.shape)}, ct {tuple(ct.shape)} (needs {n_ct} "
                          f"channels) do not fit a {width}x{height} frame")
+    if blob.data_ptr() % 16:
+        raise ValueError("blob must start on a 16-byte boundary: raster_bwd stages "
+                         "its rows with 16-byte copies")
     rows = torch.zeros((entry_ids.shape[0], F), dtype=torch.float32, device=blob.device)
     gi = None
     with torch.cuda.device(blob.device):

@@ -50,7 +50,7 @@ def _autograd_rows_check(blob, ids, ranges, width, height, seed=1):
     return rows, fb, ints
 
 
-@pytest.mark.parametrize("scene", ["small", "overlap", "ragged"])
+@pytest.mark.parametrize("scene", ["small", "overlap", "ragged", "deep"])
 def test_plain_k2_matches_autograd_of_plain_forward(scene):
     prep, width, height = _prep(scene)
     blob, ids, ranges = _binned(prep, width, height)

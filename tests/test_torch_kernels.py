@@ -25,6 +25,9 @@ SCENES = {
     "overlap": (60, 64, 32, 0.15, 0.4, 0.95),
     "ragged": (400, 72, 40, 0.8, 0.08, None),
     "wide": (3000, 256, 144, 1.0, 0.05, None),
+    # every tile holds 999-1420 entries and its pixels' n_contrib spreads
+    # over 208-1014: many batches of the backward's walk, uneven per warp
+    "deep": (1500, 64, 32, 0.4, 0.5, 0.08),
 }
 
 
@@ -348,3 +351,85 @@ def test_seeded_render_on_card_never_takes_the_plain_versions(monkeypatch):
     assert (rt.seeded_launches, rt.seeded_bwd_launches) == (before[0] + 1, before[1] + 1)
     assert all(torch.isfinite(v.grad).all() for v in init.values())
     assert torch.isfinite(means2d.grad).all() and means2d.grad.abs().sum() > 0
+
+
+def _bwd_case(scene, seeded, device):
+    """A binned frame of `scene`, its forward outputs (K3's from a seed
+    when `seeded`), and a random cotangent: composite_tiles_bwd's inputs."""
+    prep, width, height = _prep(scene, device=device)
+    blob, ids, ranges = _binned(prep, width, height)
+    init = _seed_maps(width, height, device) if seeded else None
+    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height, init=init)
+    ct = (_seeded_cotangent if seeded else _random_cotangent)(fb)
+    return dict(blob=blob, ids=ids, ranges=ranges, fb=fb, ints=ints, ct=ct,
+                width=width, height=height, init=init)
+
+
+def _bwd(case, need, plain=False):
+    """(rows, seed gradient or None) of K2 / K4, or of their plain version."""
+    fn = rt.composite_tiles_bwd_plain if plain else rt.composite_tiles_bwd
+    c = case
+    out = fn(c["blob"], c["ids"], c["ranges"], c["fb"], c["ints"], c["ct"], c["width"],
+             c["height"], *need, init=c["init"])
+    return out if c["init"] is not None else (out, None)
+
+
+def _hold_bwd(case, need):
+    """The kernel against its plain version: rows and seed gradient, each
+    column within 1e-4 of its largest value."""
+    rows, gi = _bwd(case, need)
+    ref, gi_p = _bwd(case, need, plain=True)
+    torch.cuda.synchronize()
+    assert _column_err(rows, ref) <= 1e-4
+    if gi is not None:
+        assert _column_err(gi.reshape(3, -1).T, gi_p.reshape(3, -1).T) <= 1e-4
+    return rows, gi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("need", [(True, True), (False, False)])
+def test_backward_kernel_with_a_warp_that_ends_at_entry_0(seeded, need):
+    """A tile whose lower rows (warps 4-7: pixel rows 8-15) contribute to no
+    entry (n_contrib 0, no median) on the deep scene, where the other warps
+    walk hundreds of entries: K2 / K4 against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: raster_bwd runs only on the card")
+    case = _bwd_case("deep", seeded, "cuda")
+    ints = case["ints"].clone()
+    ints[0, 8:16, 16:32] = 0
+    ints[1, 8:16, 16:32] = -1
+    case["ints"] = ints
+    rows, _ = _hold_bwd(case, need)
+    assert torch.count_nonzero(rows).item() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("need", [(True, True), (False, False)])
+def test_backward_kernel_zero_cotangent_gives_zero(seeded, need):
+    """An all-zero cotangent gives exactly zero rows and seed gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: raster_bwd runs only on the card")
+    case = _bwd_case("deep", seeded, "cuda")
+    case["ct"] = torch.zeros_like(case["ct"])
+    rows, gi = _bwd(case, need)
+    torch.cuda.synchronize()
+    assert torch.all(rows == 0.0)
+    assert gi is None or torch.all(gi == 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["deep", "wide"])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_backward_kernel_is_deterministic(scene, seeded):
+    """Two launches on the same inputs give identical rows and seed
+    gradient: each entry's sum over the tile's pixels has a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: raster_bwd runs only on the card")
+    case = _bwd_case(scene, seeded, "cuda")
+    first = _hold_bwd(case, (True, True))
+    second = _bwd(case, (True, True))
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert first[1] is None or torch.equal(first[1], second[1])

@@ -132,7 +132,7 @@ def _column_scale_err(got, ref):
     return ((got - ref).abs() / scale).max().item()
 
 
-@pytest.mark.parametrize("scene", ["small", "overlap", "ragged"])
+@pytest.mark.parametrize("scene", ["small", "overlap", "ragged", "deep"])
 @pytest.mark.parametrize("need", [(True, True), (False, False)])
 def test_plain_k4_matches_autograd_of_plain_k3(scene, need):
     """composite_tiles_bwd(init=...) (plain K4) + the per-splat reduction
