@@ -8,8 +8,8 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build every kernel from csrc/ with nvcc (sm_90a), one nvcc process per
      source, all started together, each timed; registers, shared memory
-     and spill bytes of every kernel variant from ptxas (a raster_bwd
-     variant that spills fails);
+     and spill bytes of every kernel variant from ptxas (a raster_fwd or
+     raster_bwd variant that spills fails);
   3. each kernel against its plain PyTorch version on the same inputs:
      raster_fwd (K1), raster_bwd (K2) with a fixed-seed cotangent, segsum
      (K5) on K2's rows, and the per-splat gradients under
@@ -41,7 +41,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      Gaussian-sharded over N_SLOTS slots (iterations/s, per-stage
      breakdown, device busy share from torch.profiler), and each kernel,
      its plain version and the library call that computes the same
-     function; each kernel's bound from this run's inputs; K2 and K4 also
+     function; each kernel's bound from this run's inputs, and K1's and
+     K3's (entry, warp) pairs: walked, with no pixel passing the alpha
+     test, skipped by the band cull (failing if it would skip a pair that
+     a pixel takes); K2 and K4 also
      with the distortion and median terms; K3 and K4 on each of the 8
      launches of one Gaussian-sharded step (recorded from the step
      itself), with their sums per step.
@@ -99,6 +102,9 @@ PEAK_F32_FLOPS = 67e12
 # sum over the tile's pixels (one add per field)
 OPS_PER_EVAL = 50
 OPS_PER_BLEND = 39
+# raster_fwd.cu's band test of one (entry, warp) pair (band_hit), with 4 eA,
+# -eB and the squared distances computed once
+OPS_PER_BAND_TEST = 70
 OPS_PER_BWD_STEP = 103
 # K4's step adds the mapped depth m (4 operations) and dm/dd (3), m dM1 +
 # m^2 dM2 into dL/dw (5) and (dM1 + 2 m dM2) w dm/dd into dL/dd (6); each
@@ -151,7 +157,7 @@ def build_all():
             for kernel, regs, smem, spills in ptxas_report(log):
                 print(f"[build] {name}: {kernel}: {regs} registers, {smem} bytes "
                       f"shared memory, spill stores + loads {spills} bytes")
-                if name == "raster_bwd" and spills:
+                if name in ("raster_fwd", "raster_bwd") and spills:
                     fail(f"[build] {kernel} spills registers")
 
 
@@ -378,6 +384,21 @@ def bit_equal(label, first, second):
         fail(f"[compare] {label}: two launches on the same inputs differ")
 
 
+def hold_forward(label, kernel, got, ref):
+    """K1 or K3's (fb, ints) against its plain version's: every float
+    channel within FLOAT_TOL, n_contrib and med_e equal on INT_AGREE of the
+    pixels; prints whether the two are bit-equal. Returns max |err| of fb."""
+    import torch
+    err = hold(f"{label} {kernel}, 14 float channels", got[0], ref[0], FLOAT_TOL)
+    agree = [(got[1][i] == ref[1][i]).float().mean().item() for i in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    print(f"[compare] {label} {kernel}: n_contrib equal {agree[0]:.6f}, med_e equal "
+          f"{agree[1]:.6f}; fb and ints bit-equal {same}")
+    if min(agree) < INT_AGREE:
+        fail(f"[compare] {label}: {kernel} integer planes disagree")
+    return err
+
+
 def random_cotangent(fb, width, height, channels, seed=1):
     """A fixed-seed normal cotangent on the image's pixels of the first
     `channels` channels (those that carry one: CT, or CT_SEEDED for the
@@ -402,18 +423,13 @@ def compare_kernels(prep, width, height, label, variants):
     tx, ty = rt.tile_grid(width, height)
     blob = rt.build_blob(prep, torch.zeros(n, 2, device=prep.depth.device),
                          width, height)
-    ids, ranges = rt.binning(prep, tx, ty)
-    print(f"[compare] {label}: {int(ranges[-1, 1])} (splat, tile) pairs")
+    ids, ranges, conics = rt.binning(prep, tx, ty)
+    print(f"[compare] {label}:{int(ranges[-1, 1])} (splat, tile) pairs")
     errs = {}
-    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height)
-    fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height)
-    errs["raster_fwd"] = hold(f"{label} raster_fwd, 14 float channels", fb, fb_p,
-                              FLOAT_TOL)
-    agree = [(ints[i] == ints_p[i]).float().mean().item() for i in range(2)]
-    print(f"[compare] {label} raster_fwd: n_contrib equal {agree[0]:.6f}, "
-          f"med_e equal {agree[1]:.6f}")
-    if min(agree) < INT_AGREE:
-        fail(f"[compare] {label}: raster_fwd integer planes disagree")
+    fb, ints = rt.composite_tiles(blob, conics, ids, ranges, width, height)
+    errs["raster_fwd"] = hold_forward(
+        label, "raster_fwd", (fb, ints),
+        rt.composite_tiles_plain(blob, ids, ranges, width, height))
 
     ct = random_cotangent(fb, width, height, rt.CT)
     errs["raster_bwd"] = 0.0
@@ -443,8 +459,8 @@ def compare_kernels(prep, width, height, label, variants):
     del os.environ["GMT_GRAD_REDUCE"]
     hold(f"{label} grad_blob segsum vs compact", grads["segsum"], grads["compact"],
          SEGSUM_TOL, per_column=True)
-    return errs, dict(blob=blob, ids=ids, ranges=ranges, fb=fb, ints=ints, ct=ct,
-                      need=variants[-1], rows_sorted=rows_sorted, seg=seg)
+    return errs, dict(blob=blob, conics=conics, ids=ids, ranges=ranges, fb=fb, ints=ints,
+                      ct=ct, need=variants[-1], rows_sorted=rows_sorted, seg=seg)
 
 
 def seeded_stratum(prep, width, height, k):
@@ -471,7 +487,8 @@ def seeded_stratum(prep, width, height, k):
         return stratum, init
     zeros = torch.zeros(near.depth.shape[0], 2, device=prep.depth.device)
     blob = rt.build_blob(near, zeros, width, height)
-    fb, _ = rt.composite_tiles(blob, *rt.binning(near, tx, ty), width, height)
+    ids, ranges, conics = rt.binning(near, tx, ty)
+    fb, _ = rt.composite_tiles(blob, conics, ids, ranges, width, height)
     ch = rt.FB_CHANNELS.index
     init = torch.stack([torch.where(fb[ch("mt")] < T_EPS, 0.0, fb[ch("T")]),
                         fb[ch("M1")], fb[ch("M2")]])
@@ -497,22 +514,17 @@ def compare_seeded(prep, width, height, label, variants, k=1):
     n = stratum.depth.shape[0]
     blob = rt.build_blob(stratum, torch.zeros(n, 2, device=prep.depth.device),
                          width, height)
-    ids, ranges = rt.binning(stratum, *rt.tile_grid(width, height))
+    ids, ranges, conics = rt.binning(stratum, *rt.tile_grid(width, height))
     t0 = init[0, :height, :width]
     label = f"{label}, stratum {k + 1} of {N_SLOTS}"
     print(f"[compare] {label}: {n} splats, "
           f"{int(ranges[-1, 1])} (splat, tile) pairs; seed T0 mean "
           f"{t0.mean().item():.4f}, zero (terminated nearer) at "
           f"{(t0 == 0).float().mean().item():.4f} of the pixels")
-    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height, init=init)
-    fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height, init=init)
-    errs = {"raster_fwd_seeded": hold(f"{label} raster_fwd_seeded, 14 float channels",
-                                      fb, fb_p, FLOAT_TOL)}
-    agree = [(ints[i] == ints_p[i]).float().mean().item() for i in range(2)]
-    print(f"[compare] {label} raster_fwd_seeded: n_contrib equal {agree[0]:.6f}, "
-          f"med_e equal {agree[1]:.6f}")
-    if min(agree) < INT_AGREE:
-        fail(f"[compare] {label}: raster_fwd_seeded integer planes disagree")
+    fb, ints = rt.composite_tiles(blob, conics, ids, ranges, width, height, init=init)
+    errs = {"raster_fwd_seeded": hold_forward(
+        label, "raster_fwd_seeded", (fb, ints),
+        rt.composite_tiles_plain(blob, ids, ranges, width, height, init=init))}
 
     ct = random_cotangent(fb, width, height, rt.CT_SEEDED)
     errs["raster_bwd_seeded"] = 0.0
@@ -531,8 +543,8 @@ def compare_seeded(prep, width, height, label, variants, k=1):
         bit_equal(f"{label} raster_bwd_seeded need_dist/need_med {need}", (rows, gi),
                   rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height,
                                          *need, init=init))
-    return errs, dict(blob=blob, ids=ids, ranges=ranges, fb=fb, ints=ints, ct=ct,
-                      init=init, need=variants[-1])
+    return errs, dict(blob=blob, conics=conics, ids=ids, ranges=ranges, fb=fb, ints=ints,
+                      ct=ct, init=init, need=variants[-1])
 
 
 def touch_every_channel(img, am, target):
@@ -927,28 +939,18 @@ def print_device(label, kernel_ms, top, wall_ms):
                       for name, ms, calls in top[:10]))
 
 
-def walk_counts(blob, ids, ranges, fb, ints, width, height):
-    """(K1 evaluations, K2 evaluations, blends) that this frame needs. K1
-    evaluates a pixel's entries up to the one that terminates it
-    (n_contrib + 1 where it terminated, mt < T_EPS) or all of them; K2
-    evaluates those below n_contrib; both blend (forward) or step back
-    (backward) through the entries below n_contrib with alpha > 0 at that
-    pixel, tested with the compositor's own expressions."""
+def walk_counts(blob, ids, ranges, ints, width, height):
+    """(K2 evaluations, blends) that this frame needs: K2 evaluates a
+    pixel's entries below n_contrib; K1 and K2 blend (forward) or step back
+    (backward) through those with alpha > 0 at that pixel, tested with the
+    compositor's own expressions. K1's evaluations: forward_warp_counts."""
     import torch
     from gaussmart_tpu_torch.render import raster_tiled as rt
-    from gaussmart_tpu_torch.render.raster_common import T_EPS
     tx, ty = rt.tile_grid(width, height)
     n_tiles = tx * ty
-
-    def to_tiles(x):    # [H_pad, W_pad] -> [n_tiles, 256]
-        x = x.reshape(ty, rt.TILE, tx, rt.TILE).permute(0, 2, 1, 3)
-        return x.reshape(n_tiles, rt.TILE * rt.TILE)
-
-    nc = to_tiles(ints[0]).to(torch.int64)
-    ended = to_tiles(fb[rt.FB_CHANNELS.index("mt")]) < T_EPS
+    nc = ints[0].reshape(ty, rt.TILE, tx, rt.TILE).permute(0, 2, 1, 3)
+    nc = nc.reshape(n_tiles, rt.TILE * rt.TILE).to(torch.int64)
     starts = ranges[:, 0].to(torch.int64)
-    counts = (ranges[:, 1] - ranges[:, 0]).to(torch.int64)[:, None]
-    k1_evals = torch.where(ended, torch.minimum(nc + 1, counts), counts).sum()
     t = torch.arange(n_tiles, device=blob.device)[:, None]
     p = torch.arange(rt.TILE * rt.TILE, device=blob.device)[None, :]
     px = ((t % tx) * rt.TILE + p % rt.TILE).to(torch.float32)
@@ -958,7 +960,7 @@ def walk_counts(blob, ids, ranges, fb, ints, width, height):
         slot = torch.clamp(starts + e, 0, ids.shape[0] - 1)
         r = [c[:, None] for c in blob[ids[slot].to(torch.int64)].unbind(1)]
         blends += ((e < nc) & (rt._geom_res(r, px, py)["alpha"] > 0)).sum()
-    return int(k1_evals), int(nc.sum()), int(blends)
+    return int(nc.sum()), int(blends)
 
 
 def warp_walk_evals(ranges, ints, width, height):
@@ -974,9 +976,98 @@ def warp_walk_evals(ranges, ints, width, height):
     return int(torch.minimum(warp_max, counts).sum()) * 32
 
 
+def forward_warp_counts(io, width, height):
+    """The (entry, warp) pairs of raster_fwd's walk on this frame, a warp
+    being a 4x8 block of a tile (rt.warp_pixels): it walks its tile's
+    entries until its last pixel ends (at the entry that terminates it,
+    else at the end of the list). Returns {name: count}: "evaluations",
+    the per-pixel evaluations up to each pixel's end; "kept_evaluations",
+    those of them in pairs that the band cull keeps (band_mask_plain);
+    "walked", the pairs walked (each takes a band test); "no_pass", those
+    where no pixel of the warp passes the alpha and near tests; "blend",
+    those where some pixel blends; "culled", those the cull skips;
+    "culled_passing", those of them where some pixel passes (0 when the
+    cull is exact)."""
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    from gaussmart_tpu_torch.render.raster_common import T_EPS
+    blob, conics, ids, ranges, fb, ints = (
+        io[k] for k in ("blob", "conics", "ids", "ranges", "fb", "ints"))
+    tx, ty = rt.tile_grid(width, height)
+    n_tiles = tx * ty
+
+    def to_tiles(x):    # [H_pad, W_pad] -> [n_tiles, 256]
+        x = x.reshape(ty, rt.TILE, tx, rt.TILE).permute(0, 2, 1, 3)
+        return x.reshape(n_tiles, rt.TILE * rt.TILE)
+
+    nc = to_tiles(ints[0]).to(torch.int64)
+    ended = to_tiles(fb[rt.FB_CHANNELS.index("mt")]) < T_EPS
+    starts = ranges[:, 0].to(torch.int64)
+    counts = (ranges[:, 1] - ranges[:, 0]).to(torch.int64)
+    mask = rt.band_mask_plain(blob, conics, ids, ranges, width)
+    t = torch.arange(n_tiles, device=blob.device)[:, None]
+    p = torch.arange(rt.TILE * rt.TILE, device=blob.device)[None, :]
+    px = ((t % tx) * rt.TILE + p % rt.TILE).to(torch.float32)
+    py = ((t // tx) * rt.TILE + p // rt.TILE).to(torch.float32)
+    length = counts[:, None].expand(n_tiles, rt.TILE * rt.TILE).clone()
+    warps = rt.warp_pixels(blob.device)
+    passes, blends, kept = [], [], []
+    for e in range(int(counts.max()) if n_tiles else 0):
+        slot = torch.clamp(starts + e, 0, ids.shape[0] - 1)
+        r = [c[:, None] for c in blob[ids[slot].to(torch.int64)].unbind(1)]
+        hit = (rt._geom_res(r, px, py)["alpha"] > 0) & (e < counts)[:, None]
+        # an ended pixel stops at its first considered entry past n_contrib
+        stop = ended & hit & (e >= nc) & (length == counts[:, None])
+        length = torch.where(stop, e + 1, length)
+        passes.append(hit[:, warps].any(dim=2))
+        blends.append((hit & (e < nc))[:, warps].any(dim=2))
+        kept.append(mask[slot])
+    if not passes:
+        return dict.fromkeys(("evaluations", "kept_evaluations", "walked", "no_pass",
+                              "blend", "culled", "culled_passing"), 0)
+    warp_len = length[:, warps].amax(dim=2)
+    walked = torch.arange(len(passes), device=blob.device)[:, None, None] < warp_len
+    passes, blends, kept = torch.stack(passes), torch.stack(blends), torch.stack(kept)
+    # a pixel's kept evaluations: its warp's kept entries below its length
+    warp_of = torch.empty(rt.TILE * rt.TILE, dtype=torch.int64, device=blob.device)
+    warp_of[warps.reshape(-1)] = torch.arange(warps.shape[0], device=blob.device
+                                              ).repeat_interleave(warps.shape[1])
+    kept_below = torch.cumsum(kept.to(torch.int32), dim=0)[
+        torch.clamp_min(length - 1, 0), t, warp_of[None, :]]
+    return {"evaluations": int(length.sum()),
+            "kept_evaluations": int(torch.where(length > 0, kept_below, 0).sum()),
+            "walked": int(walked.sum()),
+            "no_pass": int((walked & ~passes).sum()), "blend": int((walked & blends).sum()),
+            "culled": int((walked & ~kept).sum()),
+            "culled_passing": int((walked & ~kept & passes).sum())}
+
+
+def print_warp_counts(label, kernel, io, width, height):
+    """forward_warp_counts as a [bound] line; fails if the band cull would
+    skip an entry that some pixel of the warp takes."""
+    w = forward_warp_counts(io, width, height)
+    print(f"[bound] {label}: {kernel} per-pixel evaluations {w['evaluations']}, "
+          f"{w['kept_evaluations']} of them in pairs the band cull keeps; the warps "
+          f"walk {w['walked']} (entry, warp) pairs = {32 * w['walked']} evaluations, "
+          f"{w['no_pass']} of the pairs with no pixel passing the alpha and near tests, "
+          f"{w['blend']} with a pixel blending; the band cull skips {w['culled']} of "
+          f"them, {w['culled_passing']} with a pixel passing (limit 0)")
+    if w["culled_passing"]:
+        fail(f"[bound] {label}: the band cull skips entries that a pixel takes")
+    return w
+
+
 def bound(ops, nbytes):
     t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def forward_ops(w, blends):
+    """K1's (K3's) float32 operations on a frame with forward_warp_counts
+    `w`: the geometry of every evaluation in a pair the band cull keeps,
+    the band test of every walked pair, and the blends."""
+    return (OPS_PER_EVAL * w["kept_evaluations"] + OPS_PER_BAND_TEST * w["walked"]
+            + OPS_PER_BLEND * blends)
 
 
 def kernel_bounds(io, n_splats, width, height):
@@ -984,12 +1075,13 @@ def kernel_bounds(io, n_splats, width, height):
     each input read once and each output written once."""
     from gaussmart_tpu_torch.render import raster_tiled as rt
     blob, ids, ranges, fb, ints = (io[k] for k in ("blob", "ids", "ranges", "fb", "ints"))
-    k1_evals, k2_evals, blends = walk_counts(blob, ids, ranges, fb, ints, width, height)
+    k2_evals, blends = walk_counts(blob, ids, ranges, ints, width, height)
+    w = print_warp_counts("frame", "raster_fwd", io, width, height)
     plane = fb.shape[1] * fb.shape[2] * 4
     inputs = blob.numel() * 4 + ids.numel() * 4 + ranges.numel() * 4
     rows_bytes = ids.numel() * rt.F * 4
-    k1 = (OPS_PER_EVAL * k1_evals + OPS_PER_BLEND * blends,
-          inputs + (rt.CH + 2) * plane)
+    k1 = (forward_ops(w, blends),
+          inputs + io["conics"].numel() * 4 + (rt.CH + 2) * plane)
     # K2 reads A, T, M1, M2, n_contrib, med_e and the CT cotangent planes
     k2 = (OPS_PER_EVAL * k2_evals + (OPS_PER_BWD_STEP + rt.F) * blends,
           inputs + (4 + 2 + rt.CT) * plane + rows_bytes)
@@ -997,9 +1089,9 @@ def kernel_bounds(io, n_splats, width, height):
     # splat
     live = int((io["seg"] < n_splats).sum())
     k5 = (live * rt.F, live * (rt.F + 1) * 4 + n_splats * rt.F * 4)
-    print(f"[bound] frame: (entry, pixel) evaluations {k1_evals} in raster_fwd, "
-          f"{k2_evals} below n_contrib in raster_bwd, {blends} of them blended; "
-          f"raster_bwd's warps evaluate {warp_walk_evals(ranges, ints, width, height)}")
+    print(f"[bound] frame: (entry, pixel) evaluations {k2_evals} below n_contrib in "
+          f"raster_bwd, {blends} of them blended; raster_bwd's warps evaluate "
+          f"{warp_walk_evals(ranges, ints, width, height)}")
     return report_bounds(("raster_fwd", "raster_bwd", "segsum"), (k1, k2, k5))
 
 
@@ -1020,12 +1112,14 @@ def seeded_bounds(io, width, height, show=True):
     seed gradient written per pixel. `show` prints the counts and bounds."""
     from gaussmart_tpu_torch.render import raster_tiled as rt
     blob, ids, ranges, fb, ints = (io[k] for k in ("blob", "ids", "ranges", "fb", "ints"))
-    k3_evals, k4_evals, blends = walk_counts(blob, ids, ranges, fb, ints, width, height)
+    k4_evals, blends = walk_counts(blob, ids, ranges, ints, width, height)
+    w = (print_warp_counts("seeded stratum", "raster_fwd_seeded", io, width, height) if show
+         else forward_warp_counts(io, width, height))
     pixels = fb.shape[1] * fb.shape[2]
     plane = pixels * 4
     inputs = blob.numel() * 4 + ids.numel() * 4 + ranges.numel() * 4
-    k3 = (OPS_PER_EVAL * k3_evals + OPS_PER_BLEND * blends,
-          inputs + 3 * plane + (rt.CH + 2) * plane)
+    k3 = (forward_ops(w, blends),
+          inputs + io["conics"].numel() * 4 + 3 * plane + (rt.CH + 2) * plane)
     # K4 reads A, T, M1, M2, n_contrib, med_e, the CT_SEEDED cotangent
     # planes and the seed, and writes the rows and the seed gradient
     k4 = (OPS_PER_EVAL * k4_evals + (OPS_PER_SEEDED_BWD_STEP + rt.F) * blends
@@ -1033,9 +1127,9 @@ def seeded_bounds(io, width, height, show=True):
           inputs + (4 + 2 + rt.CT_SEEDED + 3) * plane + ids.numel() * rt.F * 4
           + 3 * plane)
     if show:
-        print(f"[bound] seeded stratum: (entry, pixel) evaluations {k3_evals} in "
-              f"raster_fwd_seeded, {k4_evals} below n_contrib in raster_bwd_seeded, "
-              f"{blends} of them blended; raster_bwd_seeded's warps evaluate "
+        print(f"[bound] seeded stratum: (entry, pixel) evaluations {k4_evals} below "
+              f"n_contrib in raster_bwd_seeded, {blends} of them blended; "
+              f"raster_bwd_seeded's warps evaluate "
               f"{warp_walk_evals(ranges, ints, width, height)}")
     return report_bounds(("raster_fwd_seeded", "raster_bwd_seeded"), (k3, k4), show)
 
@@ -1065,10 +1159,26 @@ def time_serving(state, cam, device, card):
                          FRAMES)
         frame_ms = time_ms(frame, FRAMES)
         kernel_ms, top = device_kernel_ms(frame, FRAMES)
+        # device time of the frame's stages, and of the binning's conic rows
+        # on the frame and on one depth stratum (an mp step bins 4)
+        stratum = seeded_stratum(prep, WIDTH, HEIGHT, 0)[0]
+        stage_ms = {name: device_kernel_ms(fn, FRAMES) for name, fn in (
+            ("preprocess", lambda: frame_prep(state, cam, SH_DEGREE)),
+            ("build_blob+binning", lambda: (rt.build_blob(prep, zeros, WIDTH, HEIGHT),
+                                            rt.binning(prep, *rt.tile_grid(WIDTH, HEIGHT)))),
+            ("build_conics", lambda: rt.build_conics(prep)),
+            ("build_conics on a stratum", lambda: rt.build_conics(stratum)))}
     print(f"[time] {card}: serving frame {WIDTH}x{HEIGHT}, {N_SPLATS} splats, "
           f"median of {FRAMES}: preprocess {prep_ms:.4f} ms, build_blob+binning "
           f"{bin_ms:.4f} ms, render_arrays frame {frame_ms:.4f} ms")
     print_device("serving frame", kernel_ms, top, frame_ms)
+    print(f"[time] {card}: serving frame's stages, device kernel time per call "
+          "(torch.profiler): " + "; ".join(
+              f"{name} " + ("not measured" if ms is None else
+                            f"{ms:.4f} ms in {sum(c for _, _, c in ranked):g} launches")
+              for name, (ms, ranked) in stage_ms.items())
+          + f" (binning builds the conic rows once per frame, and once for each of the "
+          f"{N_SLOTS} strata of a Gaussian-sharded frame or mp step)")
 
     def sharded():
         return frame(backend="gaussian_sharded_pallas", mesh=mesh)
@@ -1165,7 +1275,9 @@ def time_kernels(io, n_splats, width, height):
     sargs = (rows_sorted, seg, n_splats)
     with torch.inference_mode():
         out = {
-            "raster_fwd": (time_ms(lambda: rt.composite_tiles(*args), FRAMES),
+            "raster_fwd": (time_ms(lambda: rt.composite_tiles(blob, io["conics"], ids,
+                                                              ranges, width, height),
+                                   FRAMES),
                            time_ms(lambda: rt.composite_tiles_plain(*args),
                                    PLAIN_FRAMES, warmup=1), None),
             "raster_bwd": (time_ms(lambda: rt.composite_tiles_bwd(*bargs), FRAMES),
@@ -1191,7 +1303,8 @@ def time_seeded_kernels(io, width, height):
     with torch.inference_mode():
         return {
             "raster_fwd_seeded": (
-                time_ms(lambda: rt.composite_tiles(*args, init=init), FRAMES),
+                time_ms(lambda: rt.composite_tiles(blob, io["conics"], ids, ranges, width,
+                                                   height, init=init), FRAMES),
                 time_ms(lambda: rt.composite_tiles_plain(*args, init=init),
                         PLAIN_FRAMES, warmup=1), None),
             "raster_bwd_seeded": (
@@ -1218,8 +1331,8 @@ def record_mp_launches(state, cams, gts, mesh):
     recording their inputs: the 8 (pass, stratum) launches of the step as
     render_gaussian_sharded builds them (its depth strata, the identity
     seed of pass 1, the fold's seeds of pass 2) with the step's own
-    cotangents. Returns [{blob, ids, ranges, fb, ints, ct, init, need}] in
-    launch order of the forward."""
+    cotangents. Returns [{blob, conics, ids, ranges, fb, ints, ct, init,
+    need}] in launch order of the forward."""
     from gaussmart_tpu_torch.config import OptimizationParams
     from gaussmart_tpu_torch.optim import init_adam
     from gaussmart_tpu_torch.parallel.sharding import make_mp_train_step, shard_state
@@ -1231,10 +1344,10 @@ def record_mp_launches(state, cams, gts, mesh):
     fwd, bwd = [], []
     kernels = rt.composite_tiles, rt.composite_tiles_bwd
 
-    def fwd_rec(blob, ids, ranges, width, height, init=None):
-        out = kernels[0](blob, ids, ranges, width, height, init=init)
-        fwd.append(dict(blob=blob, ids=ids, ranges=ranges, fb=out[0], ints=out[1],
-                        init=init))
+    def fwd_rec(blob, conics, ids, ranges, width, height, init=None):
+        out = kernels[0](blob, conics, ids, ranges, width, height, init=init)
+        fwd.append(dict(blob=blob, conics=conics, ids=ids, ranges=ranges, fb=out[0],
+                        ints=out[1], init=init))
         return out
 
     def bwd_rec(blob, ids, ranges, fb, ints, ct, width, height, need_dist, need_med,
@@ -1266,8 +1379,9 @@ def time_mp_launches(launches, width, height, card):
         args = (io["blob"], io["ids"], io["ranges"])
         with torch.inference_mode():
             ms = {"raster_fwd_seeded": time_ms(
-                      lambda: rt.composite_tiles(*args, width, height, init=io["init"]),
-                      FRAMES),
+                      lambda: rt.composite_tiles(io["blob"], io["conics"], io["ids"],
+                                                 io["ranges"], width, height,
+                                                 init=io["init"]), FRAMES),
                   "raster_bwd_seeded": time_ms(
                       lambda: rt.composite_tiles_bwd(*args, io["fb"], io["ints"], io["ct"],
                                                      width, height, *io["need"],

@@ -14,7 +14,9 @@ Three forward stages, the same semantics as the JAX package's tiled path:
                   so positive float bit patterns sort as integers: exact
                   depth order within a tile. Buffers are sized from exact
                   counts held in int64, with one host sync per frame;
-                  nothing is ever dropped.
+                  nothing is ever dropped. It also returns the per-splat
+                  terms of its interval test (build_conics), which the
+                  kernel's cull reuses.
   composite_tiles the forward compositor K1: the CUDA kernel
                   csrc/raster_fwd.cu for CUDA tensors, composite_tiles_plain
                   for CPU tensors. A CUDA tensor never takes the plain
@@ -23,6 +25,9 @@ Three forward stages, the same semantics as the JAX package's tiled path:
                   rendering: the walk starts from the seed instead of
                   (1, 0, 0), so a depth-contiguous stratum of a larger
                   splat set composites against the global incoming state.
+                  The kernel also reads the binning's conic rows, for its
+                  cull of (entry, warp) pairs (band_mask_plain is its
+                  twin).
 
 The backward (RasterCore, a torch.autograd.Function like the JAX custom
 VJP _raster_core) runs K2, composite_tiles_bwd: the reverse walk writes
@@ -49,6 +54,8 @@ from gaussmart_tpu_torch.render.raster_common import (
 
 TILE = 16
 F = 20              # blob columns (see build_blob)
+FC = 8              # conic columns (see build_conics)
+WARP_ROWS, WARP_COLS = 4, 8     # raster_fwd.cu's warp: a 4x8 block of a tile's pixels
 CH = 14             # float framebuffer channels
 FB_CHANNELS = ("C0", "C1", "C2", "D", "A", "N0", "N1", "N2", "med", "dist",
                "T", "M1", "M2", "mt")
@@ -57,8 +64,8 @@ CT_SEEDED = 13      # the seeded core's: also M1 and M2 (they feed the fold)
 FARNEAR = (FAR_PLANE * NEAR_PLANE) / (FAR_PLANE - NEAR_PLANE)  # d(mapped)/d(depth) * depth^2
 MAPPED_SCALE = FAR_PLANE / (FAR_PLANE - NEAR_PLANE)             # mapped_depth's factor
 GRAD_REDUCE_MODES = ("compact", "scatter", "segsum")
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-_SEEDED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+_SEEDED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p] * 2)
 _SEEDED_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
@@ -88,30 +95,47 @@ def build_blob(prep: Preprocessed, means2d: torch.Tensor, width: int,
     return torch.cat([blob, blob.new_zeros(1, F)], dim=0).contiguous()
 
 
-def _row_intervals(prep: Preprocessed, sid, ty, tx0, nx):
-    """Column interval [cx0, cx1) of tile row `ty` that splat `sid` can
-    touch: the conservative hull of its c_cut-level conic (prep.ell) and
-    its filter disc over the row's pixel band, widened by the JAX
-    package's margins (raster_pallas.py::_binning); rows of splats with no
-    usable ellipse keep their full rect row."""
-    c_cut = 2.0 * torch.log(torch.clamp_min(prep.opacity, 1e-12) / ALPHA_EPS)
-    eA, eB, eC, ccx, ccy = prep.ell[sid].unbind(1)
-    scx = prep.center2d[sid, 0]
-    scy = prep.center2d[sid, 1]
-    rd2 = (0.5 * c_cut)[sid]                        # filter-disc radius^2
+def _conic_terms(ell: torch.Tensor, opacity: torch.Tensor) -> torch.Tensor:
+    """[N, FC] per-splat terms of the conservative interval test
+    (_x_extent): (A, B, ccx, ccy) of the c_cut-level conic `ell` (prep.ell,
+    A set to 0 where the ellipse is not usable), D4 = 4AC - B^2 (at least
+    1e-20), the ellipse's half-width dx_m, the row offset dy_r of its
+    rightmost point, and the filter disc's radius^2 rd2 = c_cut / 2."""
+    eA, eB, eC, ccx, ccy = ell.unbind(-1)
     usable = (eA > 0) & (eC > 0)
-    b0 = ty.to(torch.float32) * TILE                # pixel centres at ints
-    b1 = b0 + float(TILE - 1)
+    safeC = torch.where(usable, eC, 1.0)
+    D4 = torch.clamp_min(4.0 * eA * eC - eB * eB, 1e-20)
+    dx_m = 2.0 * torch.sqrt(torch.clamp_min(eC, 0.0) / D4)
+    dy_r = -eB * dx_m / (2.0 * safeC)
+    c_cut = 2.0 * torch.log(torch.clamp_min(opacity, 1e-12) / ALPHA_EPS)
+    return torch.stack([torch.where(usable, eA, 0.0), eB, ccx, ccy, D4, dx_m, dy_r,
+                        0.5 * c_cut], dim=-1)
+
+
+def build_conics(prep: Preprocessed) -> torch.Tensor:
+    """[N+1, FC] per-splat rows of _conic_terms (32-byte rows), the last
+    row zero: the binning's interval test reads them, and raster_fwd.cu's
+    band cull. It carries no gradient."""
+    terms = _conic_terms(prep.ell.detach(), prep.opacity.detach())
+    return torch.nn.functional.pad(terms, (0, 0, 0, 1)).contiguous()
+
+
+def _x_extent(terms, scx, scy, b0, b1):
+    """x-extent [xlo, xhi] (pixels) that a splat can reach in the pixel
+    rows [b0, b1]: the conservative hull of its c_cut-level conic and its
+    filter disc (centre (scx, scy)) over the band, from its _conic_terms,
+    widened by the JAX package's margins (raster_pallas.py::_binning); a
+    splat with no usable ellipse reaches every column. The binning takes it
+    over a tile row's 16 pixel rows, raster_fwd.cu's band cull
+    (band_mask_plain) over a warp's 4."""
+    eA, eB, ccx, ccy, D4, dx_m, dy_r, rd2 = terms.unbind(-1)
+    usable = eA > 0
     # ellipse x-extent over the band: the rightmost point of the ellipse is
     # at dy_m = -B dx_m / (2C); x+(dy) is concave, so its max over the band
     # is at clamp(dy_m) (symmetrically for x-)
     d0 = b0 - ccy
     d1 = b1 - ccy
     safeA = torch.where(usable, eA, 1.0)
-    safeC = torch.where(usable, eC, 1.0)
-    D4 = torch.clamp_min(4.0 * eA * eC - eB * eB, 1e-20)
-    dx_m = 2.0 * torch.sqrt(torch.clamp_min(eC, 0.0) / D4)
-    dy_r = -eB * dx_m / (2.0 * safeC)
     dy_rc = torch.clamp(dy_r, d0, d1)
     dy_lc = torch.clamp(-dy_r, d0, d1)
     disc_r = 4.0 * eA - D4 * dy_rc * dy_rc
@@ -130,8 +154,23 @@ def _row_intervals(prep: Preprocessed, sid, ty, tx0, nx):
                         torch.where(d_hit, scx - hw, BIGX))
     xhi = torch.maximum(torch.where(e_hit, xhi_e + err_e, -BIGX),
                         torch.where(d_hit, scx + hw, -BIGX))
-    xlo = torch.where(usable, xlo, -BIGX)
-    xhi = torch.where(usable, xhi, BIGX)
+    return torch.where(usable, xlo, -BIGX), torch.where(usable, xhi, BIGX)
+
+
+def _row_intervals(conics, center2d, sid, ty, tx0, nx):
+    """Column interval [cx0, cx1) of tile row `ty` that splat `sid` can
+    touch (_x_extent over the row's 16 pixel rows, on its build_conics
+    row); rows of splats with no usable ellipse keep their full rect
+    row."""
+    b0 = ty.to(torch.float32) * TILE                # pixel centres at ints
+    # each splat's row gathered element by element: on CUDA, gathering whole
+    # 32-byte rows (conics[sid], index_select, gather) takes PyTorch's
+    # vectorized gather, a block for each row (vectorized_gather_kernel in
+    # chip_smoke.py's serving-frame profile)
+    fc = conics.shape[1]
+    rows = conics.reshape(-1)[sid[:, None] * fc + torch.arange(fc, device=sid.device)]
+    xlo, xhi = _x_extent(rows, center2d[sid, 0], center2d[sid, 1], b0,
+                         b0 + float(TILE - 1))
     inv_t = 1.0 / TILE
     cx0 = torch.clamp(torch.floor(xlo * inv_t).to(torch.int64), tx0, tx0 + nx)
     cx1 = torch.clamp(torch.floor(xhi * inv_t).to(torch.int64) + 1, tx0, tx0 + nx)
@@ -139,15 +178,17 @@ def _row_intervals(prep: Preprocessed, sid, ty, tx0, nx):
 
 
 def binning(prep: Preprocessed, tiles_x: int, tiles_y: int
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (entry_ids [M'] int32 splat ids sorted by (tile, depth),
-    tile_ranges [tiles_x*tiles_y, 2] int32 (start, end) into entry_ids).
-    M' is the rect pair count; entries past the last range are unused and
-    hold N, the blob's zero row, so the gradient reduction can leave them
-    out."""
+    tile_ranges [tiles_x*tiles_y, 2] int32 (start, end) into entry_ids,
+    conics [N+1, FC], the build_conics rows its interval test used, which
+    composite_tiles takes for its cull). M' is the rect pair count; entries
+    past the last range are unused and hold N, the blob's zero row, so the
+    gradient reduction can leave them out."""
     dev = prep.depth.device
     N = prep.depth.shape[0]
     n_tiles = tiles_x * tiles_y
+    conics = build_conics(prep)
     cx, cy = prep.center2d[:, 0], prep.center2d[:, 1]
     rx, ry = prep.rx, prep.ry
     valid = prep.valid & (rx > 0) & (ry > 0)
@@ -165,14 +206,14 @@ def binning(prep: Preprocessed, tiles_x: int, tiles_y: int
     n_rows, n_rect = torch.stack([ny.sum(), (nx * ny).sum()]).tolist()
     if n_rect == 0:
         return (torch.zeros(0, dtype=torch.int32, device=dev),
-                torch.zeros(n_tiles, 2, dtype=torch.int32, device=dev))
+                torch.zeros(n_tiles, 2, dtype=torch.int32, device=dev), conics)
 
     # splat -> (splat, tile row) over its rect rows
     sid = torch.repeat_interleave(torch.arange(N, device=dev), ny,
                                   output_size=n_rows)
     row0 = torch.cumsum(ny, 0) - ny
     ty = ty0[sid] + (torch.arange(n_rows, device=dev) - row0[sid])
-    cx0, cnt = _row_intervals(prep, sid, ty, tx0[sid], nx[sid])
+    cx0, cnt = _row_intervals(conics, prep.center2d, sid, ty, tx0[sid], nx[sid])
 
     # (splat, tile row) -> (splat, tile): the culled pair count is known
     # only on the device, so the pair buffer is sized by the rect count
@@ -194,7 +235,42 @@ def binning(prep: Preprocessed, tiles_x: int, tiles_y: int
     edges = torch.searchsorted(
         key, torch.arange(n_tiles + 1, device=dev, dtype=torch.int64) << 32)
     tile_ranges = torch.stack([edges[:-1], edges[1:]], dim=1).to(torch.int32)
-    return entry_ids, tile_ranges.contiguous()
+    return entry_ids, tile_ranges.contiguous(), conics
+
+
+def warp_pixels(device=None) -> torch.Tensor:
+    """[8, 32]: the tile pixel (row-major index in the 16x16 tile) of each
+    lane of each warp of raster_fwd.cu: warp w holds the 4x8 block at rows
+    4 (w // 2) and columns 8 (w % 2), lane l its row l // 8, column l % 8."""
+    i = torch.arange(TILE * TILE, device=device)
+    i = i.reshape(TILE // WARP_ROWS, WARP_ROWS, TILE // WARP_COLS, WARP_COLS)
+    return i.permute(0, 2, 1, 3).reshape(TILE * TILE // 32, 32)
+
+
+def band_mask_plain(blob: torch.Tensor, conics: torch.Tensor, entry_ids: torch.Tensor,
+                    tile_ranges: torch.Tensor, width: int) -> torch.Tensor:
+    """Plain version of raster_fwd.cu's band cull: [M', 8] bool, column w
+    of entry slot i (of the tile whose range holds it) True unless the
+    splat fails the alpha test at every pixel of warp w's 4x8 block
+    (warp_pixels), each pixel shifted by the splat's means2d shift as the
+    walk shifts it (_x_extent over the block's rows, the binning's column
+    test over its columns); False past the last range."""
+    tiles_x = tile_grid(width, 1)[0]
+    dev = blob.device
+    counts = (tile_ranges[:, 1] - tile_ranges[:, 0]).to(torch.int64)
+    used = int(tile_ranges[-1, 1]) if counts.numel() else 0
+    tile = torch.repeat_interleave(torch.arange(counts.numel(), device=dev), counts,
+                                   output_size=used)[:, None]
+    sid = entry_ids[:used].to(torch.int64)
+    r = blob[sid]
+    corner = warp_pixels(dev)[:, 0]                     # each warp's first pixel
+    xl = ((tile % tiles_x) * TILE + corner % TILE).to(torch.float32) - r[:, 11:12]
+    b0 = ((tile // tiles_x) * TILE + corner // TILE).to(torch.float32) - r[:, 12:13]
+    xlo, xhi = _x_extent(conics[sid, None], r[:, 9:10], r[:, 10:11], b0,
+                         b0 + float(WARP_ROWS - 1))
+    mask = torch.zeros((entry_ids.shape[0], corner.shape[0]), dtype=torch.bool, device=dev)
+    mask[:used] = (xlo < xl + float(WARP_COLS)) & (xhi >= xl)
+    return mask
 
 
 def _to_tiles(x: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
@@ -284,16 +360,17 @@ def composite_tiles_plain(blob: torch.Tensor, entry_ids: torch.Tensor,
     return _to_image(fb, tiles_x, tiles_y), _to_image(ints, tiles_x, tiles_y)
 
 
-def composite_tiles(blob: torch.Tensor, entry_ids: torch.Tensor,
+def composite_tiles(blob: torch.Tensor, conics: torch.Tensor, entry_ids: torch.Tensor,
                     tile_ranges: torch.Tensor, width: int, height: int,
                     init: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1, or K3 given the seed `init` [3, H_pad, W_pad] f32 (T0, M1_0,
     M2_0): (fb [14, H_pad, W_pad] f32, ints [2, H_pad, W_pad] i32).
+    `conics` is binning's (build_conics') [N+1, FC] for the blob's splats.
 
-    CPU tensors take composite_tiles_plain. CUDA tensors launch
-    csrc/raster_fwd.cu (entry raster_fwd, or raster_fwd_seeded) on the
-    current stream or raise."""
+    CPU tensors take composite_tiles_plain, which walks every entry and
+    needs no conics. CUDA tensors launch csrc/raster_fwd.cu (entry
+    raster_fwd, or raster_fwd_seeded) on the current stream or raise."""
     if blob.device.type == "cpu":
         return composite_tiles_plain(blob, entry_ids, tile_ranges, width, height, init)
     if blob.device.type != "cuda":
@@ -301,27 +378,33 @@ def composite_tiles(blob: torch.Tensor, entry_ids: torch.Tensor,
     tiles_x, tiles_y = tile_grid(width, height)
     h_pad, w_pad = tiles_y * TILE, tiles_x * TILE
     kernels.check_tensors((("blob", blob, torch.float32, 2),
+                           ("conics", conics, torch.float32, 2),
                            ("entry_ids", entry_ids, torch.int32, 1),
                            ("tile_ranges", tile_ranges, torch.int32, 2))
                           + ((("init", init, torch.float32, 3),) if init is not None
                              else ()), blob.device)
-    if (blob.shape[1] != F or tuple(tile_ranges.shape) != (tiles_x * tiles_y, 2)
+    if (blob.shape[1] != F or tuple(conics.shape) != (blob.shape[0], FC)
+            or tuple(tile_ranges.shape) != (tiles_x * tiles_y, 2)
             or (init is not None and tuple(init.shape) != (3, h_pad, w_pad))):
-        raise ValueError(f"blob {tuple(blob.shape)} must be [N+1, {F}], "
-                         f"tile_ranges {tuple(tile_ranges.shape)} "
-                         f"[{tiles_x * tiles_y}, 2] and init [3, {h_pad}, {w_pad}]")
+        raise ValueError(f"blob {tuple(blob.shape)} must be [N+1, {F}], conics "
+                         f"{tuple(conics.shape)} [N+1, {FC}], tile_ranges "
+                         f"{tuple(tile_ranges.shape)} [{tiles_x * tiles_y}, 2] and "
+                         f"init [3, {h_pad}, {w_pad}]")
+    if blob.data_ptr() % 16 or conics.data_ptr() % 16:
+        raise ValueError("blob and conics must start on a 16-byte boundary: "
+                         "raster_fwd stages their rows with 16-byte copies")
     fb = torch.empty((CH, h_pad, w_pad), dtype=torch.float32, device=blob.device)
     ints = torch.empty((2, h_pad, w_pad), dtype=torch.int32, device=blob.device)
     with torch.cuda.device(blob.device):
         stream = torch.cuda.current_stream().cuda_stream
+        head = (blob.data_ptr(), conics.data_ptr(), entry_ids.data_ptr(),
+                tile_ranges.data_ptr())
         if init is None:
             err = kernels.load("raster_fwd", "raster_fwd", _ARGTYPES)(
-                blob.data_ptr(), entry_ids.data_ptr(), tile_ranges.data_ptr(),
-                tiles_x, tiles_y, fb.data_ptr(), ints.data_ptr(), stream)
+                *head, tiles_x, tiles_y, fb.data_ptr(), ints.data_ptr(), stream)
         else:
             err = kernels.load("raster_fwd", "raster_fwd_seeded", _SEEDED_ARGTYPES)(
-                blob.data_ptr(), entry_ids.data_ptr(), tile_ranges.data_ptr(),
-                init.data_ptr(), tiles_x, tiles_y, fb.data_ptr(), ints.data_ptr(),
+                *head, init.data_ptr(), tiles_x, tiles_y, fb.data_ptr(), ints.data_ptr(),
                 stream)
     if err != 0:
         raise RuntimeError(f"raster_fwd launch failed with CUDA error {err}")
@@ -621,9 +704,9 @@ class RasterCore(torch.autograd.Function):
     median terms (their cotangents must then be zero)."""
 
     @staticmethod
-    def forward(ctx, blob, entry_ids, tile_ranges, width, height, need_dist,
+    def forward(ctx, blob, conics, entry_ids, tile_ranges, width, height, need_dist,
                 need_med):
-        fb, ints = composite_tiles(blob, entry_ids, tile_ranges, width, height)
+        fb, ints = composite_tiles(blob, conics, entry_ids, tile_ranges, width, height)
         ctx.save_for_backward(blob, entry_ids, tile_ranges, fb, ints)
         ctx.meta = (width, height, need_dist, need_med)
         ctx.mark_non_differentiable(ints)
@@ -634,11 +717,11 @@ class RasterCore(torch.autograd.Function):
         blob, entry_ids, tile_ranges, fb, ints = ctx.saved_tensors
         width, height, need_dist, need_med = ctx.meta
         if g_fb is None:
-            return (None,) * 7
+            return (None,) * 8
         ct = g_fb[:CT].contiguous()
         rows = composite_tiles_bwd(blob, entry_ids, tile_ranges, fb, ints, ct,
                                    width, height, need_dist, need_med)
-        return (grad_reduce(rows, entry_ids, blob.shape[0]),) + (None,) * 6
+        return (grad_reduce(rows, entry_ids, blob.shape[0]),) + (None,) * 7
 
 
 class RasterCoreSeeded(torch.autograd.Function):
@@ -650,9 +733,9 @@ class RasterCoreSeeded(torch.autograd.Function):
     carries none."""
 
     @staticmethod
-    def forward(ctx, blob, init, entry_ids, tile_ranges, width, height,
+    def forward(ctx, blob, init, conics, entry_ids, tile_ranges, width, height,
                 need_dist, need_med):
-        fb, ints = composite_tiles(blob, entry_ids, tile_ranges, width, height,
+        fb, ints = composite_tiles(blob, conics, entry_ids, tile_ranges, width, height,
                                    init=init)
         ctx.save_for_backward(blob, init, entry_ids, tile_ranges, fb, ints)
         ctx.meta = (width, height, need_dist, need_med)
@@ -664,12 +747,12 @@ class RasterCoreSeeded(torch.autograd.Function):
         blob, init, entry_ids, tile_ranges, fb, ints = ctx.saved_tensors
         width, height, need_dist, need_med = ctx.meta
         if g_fb is None:
-            return (None,) * 8
+            return (None,) * 9
         ct = g_fb[:CT_SEEDED].contiguous()
         rows, gi = composite_tiles_bwd(blob, entry_ids, tile_ranges, fb, ints, ct,
                                        width, height, need_dist, need_med,
                                        init=init.contiguous())
-        return (grad_reduce(rows, entry_ids, blob.shape[0]), gi) + (None,) * 6
+        return (grad_reduce(rows, entry_ids, blob.shape[0]), gi) + (None,) * 7
 
 
 def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,
@@ -677,7 +760,7 @@ def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,
                     need_med_grad: bool = True,
                     init_state: Optional[Dict[str, torch.Tensor]] = None,
                     return_raw: bool = False,
-                    binned: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    binned: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
                     ) -> Dict[str, torch.Tensor]:
     """Tiled render: image [3,H,W], allmap [7,H,W] (expected depth, alpha,
     normal x3, median depth, distortion) and n_dropped, which is always 0
@@ -694,16 +777,16 @@ def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,
     median, dist, T, M1, M2, and the detached min test transmittance
     min_test), as in the JAX package. Without init_state the raw M1/M2
     carry no gradient; pass an identity seed to differentiate them.
-    `binned` = (entry_ids, tile_ranges) from binning(prep, ...) lets a
-    caller that composites the same prep twice bin it once."""
+    `binned` = binning(prep, ...)'s (entry_ids, tile_ranges, conics) lets
+    a caller that composites the same prep twice bin it once."""
     tiles_x, tiles_y = tile_grid(width, height)
     blob = build_blob(prep, means2d, width, height)
     if binned is None:
         with torch.no_grad():
             binned = binning(prep, tiles_x, tiles_y)
-    entry_ids, tile_ranges = binned
+    entry_ids, tile_ranges, conics = binned
     if init_state is None:
-        fb, _ = RasterCore.apply(blob, entry_ids, tile_ranges, width, height,
+        fb, _ = RasterCore.apply(blob, conics, entry_ids, tile_ranges, width, height,
                                  need_dist_grad, need_med_grad)
     else:
         h_pad, w_pad = tiles_y * TILE, tiles_x * TILE
@@ -716,8 +799,9 @@ def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,
         init = torch.cat([pad_map(init_state["T"], 1.0),
                           pad_map(init_state.get("M1", zeros), 0.0),
                           pad_map(init_state.get("M2", zeros), 0.0)])
-        fb, _ = RasterCoreSeeded.apply(blob, init.contiguous(), entry_ids, tile_ranges,
-                                       width, height, need_dist_grad, need_med_grad)
+        fb, _ = RasterCoreSeeded.apply(blob, init.contiguous(), conics, entry_ids,
+                                       tile_ranges, width, height, need_dist_grad,
+                                       need_med_grad)
     maps = fb[:, :height, :width]
     image = maps[0:3] + maps[10][None] * bg[:, None, None]
     allmap = maps[[3, 4, 5, 6, 7, 8, 9]]

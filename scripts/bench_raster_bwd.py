@@ -64,7 +64,7 @@ def with_constants(text, assignments):
         text, n = re.subn(rf"constexpr int {name} = [^;]+;",
                           f"constexpr int {name} = {value};", text)
         if n != 1:
-            raise SystemExit(f"no `constexpr int {name}` in raster_bwd.cu")
+            raise SystemExit(f"no `constexpr int {name}` in the source")
     return text
 
 
@@ -83,8 +83,8 @@ def frames(dev):
                                  ("pass 1 stratum 1", cs.seeded_stratum(prep, W, H, 0))):
             n = p.depth.shape[0]
             blob = rt.build_blob(p, torch.zeros(n, 2, device=dev), W, H)
-            ids, ranges = rt.binning(p, tx, ty)
-            fb, ints = rt.composite_tiles(blob, ids, ranges, W, H, init=init)
+            ids, ranges, conics = rt.binning(p, tx, ty)
+            fb, ints = rt.composite_tiles(blob, conics, ids, ranges, W, H, init=init)
             ct = cs.random_cotangent(fb, W, H, rt.CT if init is None else rt.CT_SEEDED)
             io = dict(blob=blob, ids=ids, ranges=ranges, fb=fb, ints=ints, ct=ct,
                       init=init, tiles=(tx, ty))

@@ -57,7 +57,7 @@ def _binned(prep, width, height):
     n = prep.depth.shape[0]
     blob = rt.build_blob(prep, torch.zeros(n, 2, device=prep.depth.device),
                          width, height)
-    ids, ranges = rt.binning(prep, tx, ty)
+    ids, ranges, _ = rt.binning(prep, tx, ty)
     return blob, ids, ranges
 
 
@@ -111,40 +111,85 @@ def test_binning_keeps_every_contributing_pair(scene):
     assert torch.all(ids[int(ranges[-1, 1]):] == prep.depth.shape[0])
 
 
+def _warp_hits(blob, ids, ranges, width):
+    """[M', 8] bool: whether entry slot i passes the compositor's alpha and
+    near tests (its own expressions, _geom_res) at some pixel of each of
+    raster_fwd's warps (rt.warp_pixels) in the slot's tile."""
+    tiles_x = rt.tile_grid(width, 1)[0]
+    used = int(ranges[-1, 1])
+    tile = torch.repeat_interleave(torch.arange(ranges.shape[0]),
+                                   (ranges[:, 1] - ranges[:, 0]).long())[:, None]
+    p = torch.arange(rt.TILE * rt.TILE)[None, :]
+    px = ((tile % tiles_x) * rt.TILE + p % rt.TILE).to(torch.float32)
+    py = ((tile // tiles_x) * rt.TILE + p // rt.TILE).to(torch.float32)
+    r = [c[:, None] for c in blob[ids[:used].long()].unbind(1)]
+    hits = torch.zeros((ids.shape[0], 8), dtype=torch.bool)
+    hits[:used] = (rt._geom_res(r, px, py)["alpha"] > 0)[:, rt.warp_pixels()].any(dim=2)
+    return hits
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_band_cull_keeps_every_contributing_warp(scene, shifted):
+    """band_mask_plain (the twin of raster_fwd.cu's band cull) clears a
+    warp's bit of an entry only where the entry fails the alpha or near
+    test at all 32 pixels of the warp, evaluated at every pixel; with a
+    means2d shift of up to 2 pixels too, which moves the warp's block as it
+    moves the walk's pixels. It clears some bits on every scene."""
+    prep, width, height = _prep(scene)
+    n = prep.depth.shape[0]
+    means2d = torch.tensor(np.random.default_rng(5).uniform(-1, 1, (n, 2)).astype(np.float32)
+                           * (2.0 / np.array([width, height], np.float32))) \
+        if shifted else torch.zeros(n, 2)
+    blob = rt.build_blob(prep, means2d, width, height)
+    ids, ranges, conics = rt.binning(prep, *rt.tile_grid(width, height))
+    assert torch.equal(conics, rt.build_conics(prep))
+    mask = rt.band_mask_plain(blob, conics, ids, ranges, width)
+    hits = _warp_hits(blob, ids, ranges, width)
+    used = int(ranges[-1, 1])
+    assert mask.shape == (ids.shape[0], 8) and not mask[used:].any()
+    assert hits.any() and not (hits & ~mask).any()
+    assert (~mask[:used]).any()
+
+
 def test_composite_tiles_on_cpu_is_the_plain_version():
     prep, width, height = _prep("ragged")
     blob, ids, ranges = _binned(prep, width, height)
     before = rt.launches
-    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height)
+    conics = rt.build_conics(prep)
+    fb, ints = rt.composite_tiles(blob, conics, ids, ranges, width, height)
     assert rt.launches == before
     fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height)
     assert torch.equal(fb, fb_p) and torch.equal(ints, ints_p)
     tx, ty = rt.tile_grid(width, height)
     assert fb.shape == (rt.CH, 16 * ty, 16 * tx) and ints.dtype == torch.int32
+    assert conics.shape == (blob.shape[0], rt.FC) and not conics.requires_grad
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        rt.composite_tiles(blob.to("meta"), ids, ranges, width, height)
+        rt.composite_tiles(blob.to("meta"), conics, ids, ranges, width, height)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("scene", list(SCENES))
 def test_kernel_matches_plain_on_card(scene):
-    """raster_fwd against composite_tiles_plain on the same binned lists.
-    Both round every operation the same way, so they agree to the bit in
-    practice; the limits are chip_smoke.py's (1e-4 on every float channel,
-    99.9% of pixels for n_contrib and med_e)."""
+    """raster_fwd against composite_tiles_plain on the same binned lists:
+    both round every operation the same way, and the band cull skips only
+    entries that fail the alpha test at every pixel of a warp, so they
+    agree to the bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: raster_fwd runs only on the card")
     prep, width, height = _prep(scene, device="cuda")
     blob, ids, ranges = _binned(prep, width, height)
+    conics = rt.build_conics(prep)
     before = rt.launches
-    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height)
+    fb, ints = rt.composite_tiles(blob, conics, ids, ranges, width, height)
     assert rt.launches == before + 1
     fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height)
     torch.cuda.synchronize()
-    assert (fb - fb_p).abs().max().item() <= 1e-4
-    assert (ints == ints_p).float().mean().item() >= 0.999
+    assert torch.equal(fb, fb_p) and torch.equal(ints, ints_p)
     with pytest.raises(ValueError, match="entry_ids"):
-        rt.composite_tiles(blob, ids.long(), ranges, width, height)
+        rt.composite_tiles(blob, conics, ids.long(), ranges, width, height)
+    with pytest.raises(ValueError, match="conics"):
+        rt.composite_tiles(blob, conics[:, :5].contiguous(), ids, ranges, width, height)
 
 
 def _random_cotangent(fb, seed=1):
@@ -192,7 +237,7 @@ def test_backward_kernel_matches_plain_on_card(scene, need):
         pytest.skip("needs a CUDA device: raster_bwd runs only on the card")
     prep, width, height = _prep(scene, device="cuda")
     blob, ids, ranges = _binned(prep, width, height)
-    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height)
+    fb, ints = rt.composite_tiles(blob, rt.build_conics(prep), ids, ranges, width, height)
     ct = _random_cotangent(fb)
     before = rt.bwd_launches
     rows = rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height, *need)
@@ -258,7 +303,8 @@ def test_seeded_compositor_on_cpu_is_the_plain_version():
     blob, ids, ranges = _binned(prep, width, height)
     init = _seed_maps(width, height, "cpu")
     before = (rt.launches, rt.bwd_launches, rt.seeded_launches, rt.seeded_bwd_launches)
-    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height, init=init)
+    fb, ints = rt.composite_tiles(blob, rt.build_conics(prep), ids, ranges, width, height,
+                                  init=init)
     fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height, init=init)
     assert torch.equal(fb, fb_p) and torch.equal(ints, ints_p)
     ct = _seeded_cotangent(fb)
@@ -276,22 +322,22 @@ def test_seeded_compositor_on_cpu_is_the_plain_version():
 @pytest.mark.parametrize("scene", list(SCENES))
 def test_seeded_kernel_matches_plain_on_card(scene):
     """raster_fwd_seeded (K3) against composite_tiles_plain with the same
-    seed, at chip_smoke.py's limits (1e-4 on every float channel, 99.9% of
-    pixels for n_contrib and med_e)."""
+    seed, bit-equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: raster_fwd_seeded runs only on the card")
     prep, width, height = _prep(scene, device="cuda")
     blob, ids, ranges = _binned(prep, width, height)
+    conics = rt.build_conics(prep)
     init = _seed_maps(width, height, "cuda")
     before = (rt.launches, rt.seeded_launches)
-    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height, init=init)
+    fb, ints = rt.composite_tiles(blob, conics, ids, ranges, width, height, init=init)
     assert (rt.launches, rt.seeded_launches) == (before[0], before[1] + 1)
     fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height, init=init)
     torch.cuda.synchronize()
-    assert (fb - fb_p).abs().max().item() <= 1e-4
-    assert (ints == ints_p).float().mean().item() >= 0.999
+    assert torch.equal(fb, fb_p) and torch.equal(ints, ints_p)
     with pytest.raises(ValueError, match="init"):
-        rt.composite_tiles(blob, ids, ranges, width, height, init=init[:2].contiguous())
+        rt.composite_tiles(blob, conics, ids, ranges, width, height,
+                           init=init[:2].contiguous())
 
 
 @pytest.mark.cuda
@@ -306,7 +352,8 @@ def test_seeded_backward_kernel_matches_plain_on_card(scene, need):
     prep, width, height = _prep(scene, device="cuda")
     blob, ids, ranges = _binned(prep, width, height)
     init = _seed_maps(width, height, "cuda")
-    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height, init=init)
+    fb, ints = rt.composite_tiles(blob, rt.build_conics(prep), ids, ranges, width, height,
+                                  init=init)
     ct = _seeded_cotangent(fb)
     before = (rt.bwd_launches, rt.seeded_bwd_launches)
     rows, gi = rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height,
@@ -359,7 +406,8 @@ def _bwd_case(scene, seeded, device):
     prep, width, height = _prep(scene, device=device)
     blob, ids, ranges = _binned(prep, width, height)
     init = _seed_maps(width, height, device) if seeded else None
-    fb, ints = rt.composite_tiles(blob, ids, ranges, width, height, init=init)
+    fb, ints = rt.composite_tiles(blob, rt.build_conics(prep), ids, ranges, width, height,
+                                  init=init)
     ct = (_seeded_cotangent if seeded else _random_cotangent)(fb)
     return dict(blob=blob, ids=ids, ranges=ranges, fb=fb, ints=ints, ct=ct,
                 width=width, height=height, init=init)
@@ -433,3 +481,78 @@ def test_backward_kernel_is_deterministic(scene, seeded):
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0])
     assert first[1] is None or torch.equal(first[1], second[1])
+
+
+def _with_counts(ids, ranges, count):
+    """The tile lists cut to their first `count` entries (tile 0 to none),
+    each tile's list kept in order: (entry_ids, tile_ranges)."""
+    starts = ranges[:, 0].long()
+    keep = torch.clamp(ranges[:, 1].long() - starts, max=count)
+    keep[0] = 0
+    new_ranges = torch.stack([torch.cumsum(keep, 0) - keep, torch.cumsum(keep, 0)], 1)
+    pos = torch.cat([s + torch.arange(int(k), device=ids.device)
+                     for s, k in zip(starts.tolist(), keep.tolist())])
+    return ids[pos].contiguous(), new_ranges.to(torch.int32).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [31, 32, 33, 63, 64, 65])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_forward_kernels_at_batch_edges(count, seeded):
+    """K1 / K3 bit-equal to composite_tiles_plain where every tile of the
+    deep scene holds exactly `count` entries and tile 0 none: batches of
+    64, each read by the warps in two ballots of 32, so one short of, at
+    and one past a ballot's and a batch's end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: raster_fwd runs only on the card")
+    prep, width, height = _prep("deep", device="cuda")
+    blob, ids, ranges = _binned(prep, width, height)
+    ids, ranges = _with_counts(ids, ranges, count)
+    assert sorted(set((ranges[:, 1] - ranges[:, 0]).tolist())) == [0, count]
+    init = _seed_maps(width, height, "cuda") if seeded else None
+    fb, ints = rt.composite_tiles(blob, rt.build_conics(prep), ids, ranges, width, height,
+                                  init=init)
+    fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height, init=init)
+    torch.cuda.synchronize()
+    assert torch.equal(fb, fb_p) and torch.equal(ints, ints_p)
+    assert torch.all(ints[0, :16, :16] == 0) and torch.all(ints[1, :16, :16] == -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["deep", "wide"])
+def test_seeded_kernel_with_every_pixel_terminated(scene):
+    """A seed with T0 = 0 everywhere (a stratum behind terminated pixels):
+    each pixel ends at its first considered entry with mt = 0 (2 where no
+    entry reaches it) and takes no entry; K3 bit-equal to the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: raster_fwd_seeded runs only on the card")
+    prep, width, height = _prep(scene, device="cuda")
+    blob, ids, ranges = _binned(prep, width, height)
+    init = _seed_maps(width, height, "cuda")
+    init[0] = 0.0
+    fb, ints = rt.composite_tiles(blob, rt.build_conics(prep), ids, ranges, width, height,
+                                  init=init)
+    fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height, init=init)
+    torch.cuda.synchronize()
+    assert torch.equal(fb, fb_p) and torch.equal(ints, ints_p)
+    mt = fb[rt.FB_CHANNELS.index("mt")]
+    assert torch.all((mt == 0.0) | (mt == 2.0)) and (mt == 0.0).any()
+    assert torch.all(ints[0] == 0) and torch.all(fb[rt.FB_CHANNELS.index("T")] == 0.0)
+
+
+@pytest.mark.cuda
+def test_forward_kernel_refuses_unaligned_rows():
+    """raster_fwd stages blob and conic rows with 16-byte copies: a blob or
+    conics that does not start on a 16-byte boundary raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: raster_fwd runs only on the card")
+    prep, width, height = _prep("small", device="cuda")
+    blob, ids, ranges = _binned(prep, width, height)
+    conics = rt.build_conics(prep)
+
+    def shifted(x):   # the same values, 4 bytes past an aligned start
+        return torch.empty(x.numel() + 1, device=x.device)[1:].view_as(x).copy_(x)
+    for b, c in ((shifted(blob), conics), (blob, shifted(conics))):
+        with pytest.raises(ValueError, match="16-byte"):
+            rt.composite_tiles(b, c, ids, ranges, width, height)
