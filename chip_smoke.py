@@ -8,18 +8,25 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build every kernel from csrc/ with nvcc (sm_90a), one nvcc process per
      source, all started together, each timed; registers, shared memory
-     and spill bytes of every kernel variant from ptxas (a raster_fwd or
-     raster_bwd variant that spills fails);
+     and spill bytes of every kernel variant from ptxas (a variant that
+     spills fails);
   3. each kernel against its plain PyTorch version on the same inputs:
      raster_fwd (K1), raster_bwd (K2) with a fixed-seed cotangent, segsum
-     (K5) on K2's rows, and the per-splat gradients under
-     GMT_GRAD_REDUCE=compact vs segsum, at the tests' small scene and at
-     full width; raster_fwd_seeded (K3) and raster_bwd_seeded (K4) on the
-     second of N_SLOTS depth strata of each frame, seeded as the
+     (K5) on K2's rows through the binning's work-slot map on both of its
+     routes (compact: the walked rows only; segsum: every live row)
+     against its plain version on a CPU copy, and the per-splat gradients
+     of grad_reduce's three routes (compact and segsum bit-equal, scatter
+     within tolerance), at the tests' small scene and at full width;
+     raster_fwd_seeded (K3) and raster_bwd_seeded (K4, and K5 on its rows)
+     on the second of N_SLOTS depth strata of each frame, seeded as the
      Gaussian-sharded fold seeds it, and on the training frame's first
-     from the identity seed (pass 1); K2 and K4 launched twice, the two
-     bit-equal; the tiled render and its gradients against the dense
-     oracle on the small scene;
+     from the identity seed (pass 1); K2, K4 and K5 launched twice, the
+     two bit-equal; the tiled render and its gradients against the dense
+     oracle on the small scene; the whole backward's determinism: two
+     training steps (single-device, Gaussian-sharded and data-parallel)
+     from the same state give bit-equal gradients on every parameter and
+     on means2d under the default route (and, printed only, under
+     scatter);
   4. the serving path: a trained-model directory (100k splats, SH degree 3,
      8 views at 776x584, made from --seed) rendered by
      gaussmart_tpu_torch.render_cli, its saved renders held against
@@ -32,7 +39,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      gaussmart_tpu_torch.train.main for TRAIN_ITERS iterations (densify,
      eval, save and checkpoint on the way), resumed from its checkpoint
      for RESUME_ITERS more, then trained SEGSUM_ITERS iterations under
-     GMT_GRAD_REDUCE=segsum; then the same schedule Gaussian-sharded
+     GMT_GRAD_REDUCE=segsum (their losses equal the default route's to the
+     bit); then the same schedule Gaussian-sharded
      (--n_devices N_SLOTS --parallel_mode mp: K3/K4) with its resume, and
      DP_ITERS camera data-parallel iterations (--n_devices N_SLOTS);
   6. timings with CUDA events (median over FRAMES calls after warm-up):
@@ -41,7 +49,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      Gaussian-sharded over N_SLOTS slots (iterations/s, per-stage
      breakdown, device busy share from torch.profiler), and each kernel,
      its plain version and the library call that computes the same
-     function; each kernel's bound from this run's inputs, and K1's and
+     function; K5 per route, kernel only and as the whole route in the
+     backward against index_add_'s; each kernel's bound from this run's
+     inputs, and K1's and
      K3's (entry, warp) pairs: walked, with no pixel passing the alpha
      test, skipped by the band cull (failing if it would skip a pair that
      a pixel takes); K2 and K4 also
@@ -58,6 +68,7 @@ gaussmart_tpu_torch package beside it, it fails before printing a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import json
 import os
@@ -91,7 +102,8 @@ KERNELS = {"raster_fwd": ("raster_fwd", "gaussmart_tpu/render/raster_pallas.py:3
 SOURCES = ("raster_fwd", "raster_bwd", "segsum")
 # the template parameters of the kernels' variants, for the ptxas report
 TEMPLATE_PARAMS = {"raster_fwd_kernel": ("seeded",),
-                   "raster_bwd_kernel": ("need_dist", "need_med", "seeded")}
+                   "raster_bwd_kernel": ("need_dist", "need_med", "seeded"),
+                   "segsum_kernel": ("order", "walk")}
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -114,7 +126,7 @@ OPS_PER_SEED_GRAD = 3
 FLOAT_TOL = 1e-4          # K1 vs plain, every float channel
 INT_AGREE = 0.999         # K1 vs plain, n_contrib / med_e pixel share
 BWD_TOL = 1e-5            # K2 vs plain, per column, of the column's max |value|
-SEGSUM_TOL = 1e-5         # K5 vs plain and compact vs segsum, likewise
+SEGSUM_TOL = 1e-5         # K5 vs plain and scatter vs compact, likewise
 GRAD_ATOL, GRAD_RTOL = 3e-3, 2e-2   # tiled vs dense gradients (x max |g|)
 PNG_TOL = 1               # saved render vs in-memory render, 8-bit levels
 SHARDED_TOL = 5e-4        # Gaussian-sharded vs single-device renders (test_parallel.py)
@@ -157,7 +169,7 @@ def build_all():
             for kernel, regs, smem, spills in ptxas_report(log):
                 print(f"[build] {name}: {kernel}: {regs} registers, {smem} bytes "
                       f"shared memory, spill stores + loads {spills} bytes")
-                if name in ("raster_fwd", "raster_bwd") and spills:
+                if spills:
                     fail(f"[build] {kernel} spills registers")
 
 
@@ -399,6 +411,22 @@ def hold_forward(label, kernel, got, ref):
     return err
 
 
+@contextlib.contextmanager
+def grad_reduce_route(mode):
+    """GMT_GRAD_REDUCE=`mode` inside the block (grad_reduce reads it on
+    every backward)."""
+    os.environ["GMT_GRAD_REDUCE"] = mode
+    try:
+        yield
+    finally:
+        del os.environ["GMT_GRAD_REDUCE"]
+
+
+def worst(*errs):
+    """{kernel: the largest max abs err} over dicts of some of KERNELS."""
+    return {k: max(e.get(k, 0.0) for e in errs) for k in KERNELS}
+
+
 def random_cotangent(fb, width, height, channels, seed=1):
     """A fixed-seed normal cotangent on the image's pixels of the first
     `channels` channels (those that carry one: CT, or CT_SEEDED for the
@@ -411,19 +439,62 @@ def random_cotangent(fb, width, height, channels, seed=1):
     return ct
 
 
-def compare_kernels(prep, width, height, label, variants):
-    """raster_fwd, raster_bwd (each (need_dist, need_med) of `variants`)
-    and segsum against their plain versions on one binned frame, and the
-    per-splat gradients under GMT_GRAD_REDUCE=compact vs segsum. Returns
-    ({kernel: max abs err}, the frame's tensors for timing)."""
+def hold_reduction(label, rows, binned, ints):
+    """K5 on `rows` (K2's or K4's) through the binning's work-slot map, on
+    the compact route (walk test) and the segsum route (every live slot),
+    each against its plain version on a CPU copy and launched twice; then
+    grad_reduce's three routes: compact and segsum must agree to the bit,
+    scatter (index_add_) within SEGSUM_TOL. Returns (max abs err of K5,
+    the walk limits)."""
     import torch
     from gaussmart_tpu_torch.render import raster_tiled as rt
     from gaussmart_tpu_torch.render import segsum
+    b = binned
+    n_rows = b.slot_starts.shape[0]
+    limits = rt.walk_limits(ints, b.tile_ranges)
+    walked = int((limits - b.tile_ranges[:, 0]).sum())
+    print(f"[compare] {label} segsum: {int(b.slot_starts[-1])} live (splat, tile) slots, "
+          f"{walked} of them below their tile's walk limit")
+    err = 0.0
+    for route, walk in (("compact", (b.slot_tile, limits)), ("segsum", (None, None))):
+        args = (rows, b.inv_slots, b.slot_starts, n_rows) + walk
+        out = segsum.segment_sum_gathered(*args).cpu()
+        ref = segsum.segment_sum_gathered_plain(
+            *(x.cpu() if isinstance(x, torch.Tensor) else x for x in args))
+        err = max(err, hold(f"{label} segsum, {route} route, vs its plain version on a "
+                            "CPU copy", out, ref, SEGSUM_TOL, per_column=True))
+        print(f"[compare] {label} segsum, {route} route: bit-equal to the plain version "
+              f"{torch.equal(out, ref)}")
+        bit_equal(f"{label} segsum, {route} route", (out,),
+                  segsum.segment_sum_gathered(*args).cpu())
+    grads = {}
+    for mode in rt.GRAD_REDUCE_MODES:
+        with grad_reduce_route(mode):
+            grads[mode] = rt.grad_reduce(rows, b.entry_ids, n_rows, b, ints)
+    same = torch.equal(grads["compact"], grads["segsum"])
+    print(f"[compare] {label} grad_reduce: compact and segsum routes bit-equal {same}")
+    if not same:
+        fail(f"[compare] {label}: the compact and segsum routes differ")
+    hold(f"{label} grad_reduce scatter (index_add_) vs compact", grads["scatter"],
+         grads["compact"], SEGSUM_TOL, per_column=True)
+    print(f"[compare] {label} grad_reduce: scatter bit-equal to compact "
+          f"{torch.equal(grads['scatter'], grads['compact'])}")
+    return err, limits
+
+
+def compare_kernels(prep, width, height, label, variants):
+    """raster_fwd, raster_bwd (each (need_dist, need_med) of `variants`)
+    and segsum (hold_reduction, on the last variant's rows) against their
+    plain versions on one binned frame. Returns ({kernel: max abs err},
+    the frame's tensors for timing)."""
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
     n = prep.depth.shape[0]
     tx, ty = rt.tile_grid(width, height)
     blob = rt.build_blob(prep, torch.zeros(n, 2, device=prep.depth.device),
                          width, height)
-    ids, ranges, conics = rt.binning(prep, tx, ty)
+    binned = rt.binning(prep, tx, ty)
+    ids, ranges, conics = binned[:3]
     print(f"[compare] {label}:{int(ranges[-1, 1])} (splat, tile) pairs")
     errs = {}
     fb, ints = rt.composite_tiles(blob, conics, ids, ranges, width, height)
@@ -444,23 +515,9 @@ def compare_kernels(prep, width, height, label, variants):
         bit_equal(f"{label} raster_bwd need_dist/need_med {need}", (rows,),
                   rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height,
                                          *need))
-    # K5 as grad_reduce calls it: rows sorted by splat id, the unused
-    # entries (id n, the dummy row) left out of the n segments
-    seg, perm = torch.sort(ids, stable=True)
-    rows_sorted = rows[perm].contiguous()
-    out = segsum.segment_sum_sorted(rows_sorted, seg, n)
-    errs["segsum"] = hold(f"{label} segsum", out,
-                          segsum.segment_sum_sorted_plain(rows_sorted, seg, n),
-                          SEGSUM_TOL, per_column=True)
-    grads = {}
-    for mode in ("compact", "segsum"):
-        os.environ["GMT_GRAD_REDUCE"] = mode
-        grads[mode] = rt.grad_reduce(rows, ids, n + 1)
-    del os.environ["GMT_GRAD_REDUCE"]
-    hold(f"{label} grad_blob segsum vs compact", grads["segsum"], grads["compact"],
-         SEGSUM_TOL, per_column=True)
+    errs["segsum"], limits = hold_reduction(label, rows, binned, ints)
     return errs, dict(blob=blob, conics=conics, ids=ids, ranges=ranges, fb=fb, ints=ints,
-                      ct=ct, need=variants[-1], rows_sorted=rows_sorted, seg=seg)
+                      ct=ct, need=variants[-1], rows=rows, binned=binned, limits=limits)
 
 
 def seeded_stratum(prep, width, height, k):
@@ -487,7 +544,7 @@ def seeded_stratum(prep, width, height, k):
         return stratum, init
     zeros = torch.zeros(near.depth.shape[0], 2, device=prep.depth.device)
     blob = rt.build_blob(near, zeros, width, height)
-    ids, ranges, conics = rt.binning(near, tx, ty)
+    ids, ranges, conics = rt.binning(near, tx, ty)[:3]
     fb, _ = rt.composite_tiles(blob, conics, ids, ranges, width, height)
     ch = rt.FB_CHANNELS.index
     init = torch.stack([torch.where(fb[ch("mt")] < T_EPS, 0.0, fb[ch("T")]),
@@ -514,7 +571,8 @@ def compare_seeded(prep, width, height, label, variants, k=1):
     n = stratum.depth.shape[0]
     blob = rt.build_blob(stratum, torch.zeros(n, 2, device=prep.depth.device),
                          width, height)
-    ids, ranges, conics = rt.binning(stratum, *rt.tile_grid(width, height))
+    binned = rt.binning(stratum, *rt.tile_grid(width, height))
+    ids, ranges, conics = binned[:3]
     t0 = init[0, :height, :width]
     label = f"{label}, stratum {k + 1} of {N_SLOTS}"
     print(f"[compare] {label}: {n} splats, "
@@ -543,6 +601,8 @@ def compare_seeded(prep, width, height, label, variants, k=1):
         bit_equal(f"{label} raster_bwd_seeded need_dist/need_med {need}", (rows, gi),
                   rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height,
                                          *need, init=init))
+    errs["segsum"] = hold_reduction(f"{label} raster_bwd_seeded rows", rows, binned,
+                                    ints)[0]
     return errs, dict(blob=blob, conics=conics, ids=ids, ranges=ranges, fb=fb, ints=ints,
                       ct=ct, init=init, need=variants[-1])
 
@@ -589,6 +649,86 @@ def tiled_vs_dense(device):
     if not worst <= 1.0:
         fail("[compare] tiled gradients disagree with the dense oracle")
     return d_img
+
+
+def step_gradients(step, args):
+    """One training step `step(*args)`, recording the autograd leaves that
+    each view's _loss_and_aux differentiates: {name: .grad} of every
+    parameter group and of means2d, for each view and each slot's chunk."""
+    from gaussmart_tpu_torch import train_lib
+    from gaussmart_tpu_torch.optim import NAMES
+    from gaussmart_tpu_torch.parallel import sharding
+    calls = []
+    original = train_lib._loss_and_aux
+
+    def recording(params, means2d, *a, **kw):
+        calls.append((params, means2d))
+        return original(params, means2d, *a, **kw)
+    train_lib._loss_and_aux = sharding._loss_and_aux = recording
+    try:
+        step(*args)
+    finally:
+        train_lib._loss_and_aux = sharding._loss_and_aux = original
+    grads = {}
+    for v, (params, means2d) in enumerate(calls):
+        chunks = params if isinstance(params, list) else [params]
+        m2d = means2d if isinstance(means2d, list) else [means2d]
+        for c, (p, m) in enumerate(zip(chunks, m2d)):
+            grads.update({f"view {v} chunk {c} {n}": getattr(p, n).grad for n in NAMES})
+            grads[f"view {v} chunk {c} means2d"] = m.grad
+    return grads
+
+
+def backward_determinism(state, cams, gts, device):
+    """Two backwards of each training step (make_train_step; the
+    Gaussian-sharded make_mp_train_step and the data-parallel
+    make_dp_train_step over N_SLOTS slots) from the same state, cameras and
+    targets: the gradients of every parameter and of means2d must be
+    bit-equal on the default route. Under GMT_GRAD_REDUCE=scatter
+    (index_add_'s atomics) whether they are is printed, not held."""
+    import torch
+    from gaussmart_tpu_torch.config import OptimizationParams
+    from gaussmart_tpu_torch.optim import init_adam
+    from gaussmart_tpu_torch.parallel.sharding import (BatchedCameras, make_dp_train_step,
+                                                       make_mesh, make_mp_train_step,
+                                                       replicate, shard_batch,
+                                                       shard_state)
+    from gaussmart_tpu_torch.train_lib import make_train_step
+    opt = OptimizationParams()
+    kw = dict(sh_degree=SH_DEGREE, white_background=False, spatial_lr_scale=1.0)
+    mesh = make_mesh(N_SLOTS, device)
+    adam = init_adam(state.params)
+    batched = BatchedCameras.stack([cams[i % len(cams)] for i in range(N_SLOTS)])
+    targets = torch.stack([gts[i % len(gts)] for i in range(N_SLOTS)])
+    steps = {
+        "training step": (make_train_step(opt, backend="auto", **kw),
+                          (state.params, adam, state.aux, cams[1], gts[1], 1)),
+        f"Gaussian-sharded step over {N_SLOTS} slots": (
+            make_mp_train_step(opt, mesh, backend="gaussian_sharded_pallas", **kw),
+            shard_state(state.params, adam, state.aux, mesh) + (cams[1], gts[1], 1)),
+        f"data-parallel step over {N_SLOTS} slots": (
+            make_dp_train_step(opt, mesh, backend="auto", **kw),
+            (replicate(state.params, mesh), replicate(adam, mesh),
+             replicate(state.aux, mesh), shard_batch(batched, mesh),
+             shard_batch(targets, mesh), 1)),
+    }
+    for label, (step, args) in steps.items():
+        for mode in ("compact", "scatter"):
+            with grad_reduce_route(mode):
+                first, second = step_gradients(step, args), step_gradients(step, args)
+            differ = [k for k in first if not (
+                first[k] is second[k] is None
+                or (first[k] is not None and second[k] is not None
+                    and torch.equal(first[k], second[k])))]
+            print(f"[determinism] {label}, GMT_GRAD_REDUCE={mode}: two backwards from the "
+                  f"same state, {len(first)} gradients (every parameter group and "
+                  f"means2d, per view and chunk) bit-equal {not differ}"
+                  + (f"; differing: {', '.join(differ)}" if differ else "")
+                  + ("" if mode == "compact" else " (index_add_'s float atomics: not "
+                     "held)"))
+            if mode == "compact" and differ:
+                fail(f"[determinism] {label}: the default route's gradients differ "
+                     "between two backwards")
 
 
 # --- the main paths ----------------------------------------------------------
@@ -779,7 +919,8 @@ def train_path(root, seed, n, width, height, device):
           f"{counts}; loss first 5 {first:.5f}, last 5 {last:.5f}; splats "
           f"{int(state.n_active)} of capacity {state.capacity}; Adam steps "
           f"{int(adam.step)}; eval {ev}; missing outputs {missing}")
-    if not (only(counts, raster_fwd=TRAIN_ITERS + EVAL_RENDERS, raster_bwd=TRAIN_ITERS)
+    if not (only(counts, raster_fwd=TRAIN_ITERS + EVAL_RENDERS, raster_bwd=TRAIN_ITERS,
+                 segsum=TRAIN_ITERS)
             and int(adam.step) == TRAIN_ITERS - densified
             and np.all(np.isfinite(losses)) and len(losses) == TRAIN_ITERS
             and last < first and not missing
@@ -796,7 +937,8 @@ def train_path(root, seed, n, width, height, device):
     print(f"[train] resumed from chkpnt{it}.npz for {RESUME_ITERS} iterations in "
           f"{secs:.2f} s: launches {rcounts}; losses {resumed}; Adam steps "
           f"{int(adam.step)}; logged iterations {logged}")
-    if not (only(rcounts, raster_fwd=RESUME_ITERS, raster_bwd=RESUME_ITERS)
+    if not (only(rcounts, raster_fwd=RESUME_ITERS, raster_bwd=RESUME_ITERS,
+                 segsum=RESUME_ITERS)
             and int(adam.step) == TRAIN_ITERS - densified + RESUME_ITERS
             and logged == [end] and np.all(np.isfinite(resumed))
             and os.path.exists(os.path.join(out, "point_cloud", f"iteration_{end}",
@@ -804,20 +946,18 @@ def train_path(root, seed, n, width, height, device):
         fail("[train] resume check failed")
 
     seg_losses = []
-    os.environ["GMT_GRAD_REDUCE"] = "segsum"
-    try:
+    with grad_reduce_route("segsum"):
         _, _, scounts, secs = train_cli(
             src, os.path.join(root, "trained_segsum"), SEGSUM_ITERS, device,
             seg_losses, ["--test_iterations", "0"])
-    finally:
-        del os.environ["GMT_GRAD_REDUCE"]
+    same = seg_losses == losses[:SEGSUM_ITERS]
     print(f"[train] GMT_GRAD_REDUCE=segsum, {SEGSUM_ITERS} iterations in {secs:.2f} s: "
           f"launches {scounts}; losses {seg_losses}; the same iterations' losses "
-          f"under compact {losses[:SEGSUM_ITERS]}")
+          f"under compact {losses[:SEGSUM_ITERS]}: equal {same}")
     if not (only(scounts, raster_fwd=SEGSUM_ITERS, raster_bwd=SEGSUM_ITERS,
-                 segsum=SEGSUM_ITERS) and np.all(np.isfinite(seg_losses))):
+                 segsum=SEGSUM_ITERS) and np.all(np.isfinite(seg_losses)) and same):
         fail("[train] segsum route check failed")
-    return counts, scounts, losses
+    return counts, losses
 
 
 def train_slots_path(root, device, single_losses):
@@ -849,7 +989,7 @@ def train_slots_path(root, device, single_losses):
           f"{state.capacity}; Adam steps {int(adam.step)}; eval {ev}; missing "
           f"outputs {missing}")
     if not (only(counts, raster_fwd_seeded=per_frame * (TRAIN_ITERS + EVAL_RENDERS),
-                 raster_bwd_seeded=per_frame * TRAIN_ITERS)
+                 raster_bwd_seeded=per_frame * TRAIN_ITERS, segsum=per_frame * TRAIN_ITERS)
             and int(adam.step) == TRAIN_ITERS - densified
             and np.all(np.isfinite(losses)) and len(losses) == TRAIN_ITERS
             and last < first and not missing and state.capacity % N_SLOTS == 0
@@ -866,7 +1006,7 @@ def train_slots_path(root, device, single_losses):
           f"iterations in {secs:.2f} s: launches {rcounts}; losses {resumed}; Adam "
           f"steps {int(adam.step)}")
     if not (only(rcounts, raster_fwd_seeded=per_frame * RESUME_ITERS,
-                 raster_bwd_seeded=per_frame * RESUME_ITERS)
+                 raster_bwd_seeded=per_frame * RESUME_ITERS, segsum=per_frame * RESUME_ITERS)
             and int(adam.step) == TRAIN_ITERS - densified + RESUME_ITERS
             and np.all(np.isfinite(resumed))
             and os.path.exists(os.path.join(out, "point_cloud", f"iteration_{end}",
@@ -879,7 +1019,8 @@ def train_slots_path(root, device, single_losses):
     print(f"[train] train.main --n_devices {N_SLOTS} (camera data-parallel), {DP_ITERS} "
           f"iterations of {N_SLOTS} views in {secs:.2f} s: launches {dcounts}; losses "
           f"{dp_losses}; Adam steps {int(adam.step)}")
-    if not (only(dcounts, raster_fwd=N_SLOTS * DP_ITERS, raster_bwd=N_SLOTS * DP_ITERS)
+    if not (only(dcounts, raster_fwd=N_SLOTS * DP_ITERS, raster_bwd=N_SLOTS * DP_ITERS,
+                 segsum=N_SLOTS * DP_ITERS)
             and int(adam.step) == DP_ITERS and len(dp_losses) == DP_ITERS
             and np.all(np.isfinite(dp_losses))):
         fail("[train] data-parallel check failed")
@@ -905,21 +1046,32 @@ def time_ms(fn, frames, warmup=2):
     return float(np.median(times))
 
 
-def device_kernel_ms(fn, frames):
+def device_kernel_ms(fn, frames, warmup=2):
     """Device kernel milliseconds per call of fn and every kernel's
     (name, ms per call, launches per call), most time first, from
-    torch.profiler over `frames` calls; (None, []) when the profiler
-    records no device events."""
+    torch.profiler over `frames` calls, recorded after `warmup` traced but
+    discarded calls and a pause (a trace that has just started drops the
+    first kernels it sees: launches per call then read below the code's);
+    (None, []) when the profiler records no device events."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=frames,
+                                   repeat=1)) as prof:
+        for i in range(warmup + frames):
             fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            if i >= warmup - 1:
+                torch.cuda.synchronize()
+            prof.step()
+            if i == warmup - 1:         # the recorded calls start here
+                time.sleep(0.1)
+    # kernels only: the schedule's step annotations (ProfilerStep#) have a
+    # device range of their own
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")]
     total_us = sum(e.self_device_time_total for e in events)
     if not events or total_us <= 0:
         return None, []
@@ -1070,7 +1222,7 @@ def forward_ops(w, blends):
             + OPS_PER_BLEND * blends)
 
 
-def kernel_bounds(io, n_splats, width, height):
+def kernel_bounds(io, width, height):
     """{kernel: (bound_ms, bound_by, ops, bytes)} on this frame's inputs,
     each input read once and each output written once."""
     from gaussmart_tpu_torch.render import raster_tiled as rt
@@ -1085,10 +1237,13 @@ def kernel_bounds(io, n_splats, width, height):
     # K2 reads A, T, M1, M2, n_contrib, med_e and the CT cotangent planes
     k2 = (OPS_PER_EVAL * k2_evals + (OPS_PER_BWD_STEP + rt.F) * blends,
           inputs + (4 + 2 + rt.CT) * plane + rows_bytes)
-    # K5 reads the rows and ids of the entries in use and writes a row per
-    # splat
-    live = int((io["seg"] < n_splats).sum())
-    k5 = (live * rt.F, live * (rt.F + 1) * 4 + n_splats * rt.F * 4)
+    # K5 on the default compact route: reduction_bytes, one add per
+    # element of each walked row
+    nbytes, walked, live = reduction_bytes(io)
+    k5 = (walked * rt.F, nbytes["compact"])
+    print(f"[bound] frame: segsum reads {walked} walked rows of {live} live slots on the "
+          f"compact route ({nbytes['compact']} bytes; every live row on the segsum "
+          f"route: {nbytes['segsum']} bytes)")
     print(f"[bound] frame: (entry, pixel) evaluations {k2_evals} below n_contrib in "
           f"raster_bwd, {blends} of them blended; raster_bwd's warps evaluate "
           f"{warp_walk_evals(ranges, ints, width, height)}")
@@ -1250,29 +1405,28 @@ def time_training(state, cams, gts, card, mesh=None):
           + ", ".join(f"{s} {ms:.4f} ms" for s, ms in zip(stages, parts)))
     kernel_ms, top = device_kernel_ms(one, 5)
     print_device(what, kernel_ms, top, step_ms)
-    # the compositor's kernels (K1/K2, or K3/K4 over slots), and
-    # index_add_'s scatter (the default GMT_GRAD_REDUCE=compact reduction)
+    # the compositor's kernels (K1/K2, or K3/K4 over slots), K5 (the
+    # default GMT_GRAD_REDUCE=compact reduction), and index_add_'s scatter
+    # (the reduction before K5 took the default route: 0 now)
     for part, key in (("render", "raster_fwd_kernel"), ("backward", "raster_bwd_kernel"),
-                      ("backward", "indexFuncLargeIndex")):
+                      ("backward", "segsum_kernel"), ("backward", "indexFuncLargeIndex")):
         ms = sum(t for name, t, _ in top if key in name)
         print(f"[time] {what}: {part} {parts[stages.index(part)]:.4f} ms, of which "
               f"{key} {ms:.4f} ms device time (torch.profiler)")
     return 1e3 / step_ms
 
 
-def time_kernels(io, n_splats, width, height):
+def time_kernels(io, width, height):
     """{kernel: (ms, plain_ms, library_ms)} on one full-width frame."""
     import torch
     from gaussmart_tpu_torch.render import raster_tiled as rt
     from gaussmart_tpu_torch.render import segsum
     blob, ids, ranges, fb, ints, ct = (io[k] for k in
                                        ("blob", "ids", "ranges", "fb", "ints", "ct"))
-    rows_sorted, seg, need = io["rows_sorted"], io["seg"], io["need"]
-    live = int((seg < n_splats).sum())
-    lengths = torch.bincount(seg[:live], minlength=n_splats)
+    need = io["need"]
     args = (blob, ids, ranges, width, height)
     bargs = (blob, ids, ranges, fb, ints, ct, width, height) + tuple(need)
-    sargs = (rows_sorted, seg, n_splats)
+    k5 = reduction_inputs(io)
     with torch.inference_mode():
         out = {
             "raster_fwd": (time_ms(lambda: rt.composite_tiles(blob, io["conics"], ids,
@@ -1283,13 +1437,94 @@ def time_kernels(io, n_splats, width, height):
             "raster_bwd": (time_ms(lambda: rt.composite_tiles_bwd(*bargs), FRAMES),
                            time_ms(lambda: rt.composite_tiles_bwd_plain(*bargs),
                                    PLAIN_FRAMES, warmup=1), None),
-            "segsum": (time_ms(lambda: segsum.segment_sum_sorted(*sargs), FRAMES),
-                       time_ms(lambda: segsum.segment_sum_sorted_plain(*sargs), FRAMES),
+            # the default compact route's K5; its plain version on the card
+            # (a loop over slot positions), torch.segment_reduce on the
+            # rows already in slot order
+            "segsum": (time_ms(lambda: segsum.segment_sum_gathered(*k5["compact"]), FRAMES),
+                       time_ms(lambda: segsum.segment_sum_gathered_plain(*k5["compact"]),
+                               PLAIN_FRAMES, warmup=1),
                        time_ms(lambda: torch.segment_reduce(
-                           rows_sorted[:live], "sum", lengths=lengths, axis=0),
+                           k5["rows_in_slots"], "sum", lengths=k5["lengths"], axis=0),
                            FRAMES)),
         }
     return out
+
+
+def reduction_inputs(io):
+    """K5's arguments on a frame's rows for each route, and the rows in
+    slot order with each splat's slot count (torch.segment_reduce's)."""
+    import torch
+    b, rows = io["binned"], io["rows"]
+    n_rows = b.slot_starts.shape[0]
+    live = int(b.slot_starts[-1])
+    return {"compact": (rows, b.inv_slots, b.slot_starts, n_rows, b.slot_tile, io["limits"]),
+            "segsum": (rows, b.inv_slots, b.slot_starts, n_rows),
+            "rows_in_slots": rows[b.inv_slots[:live].to(torch.int64)].contiguous(),
+            "lengths": (b.slot_starts[1:] - b.slot_starts[:-1]).to(torch.int64)}
+
+
+def reduction_bytes(io):
+    """{route: bytes} that K5 must move on the frame (each input read once,
+    each output written once): compact reads the walked rows (80 B each),
+    order and slot_tile of every live slot (8 B), slot_starts and the walk
+    limits; segsum every live row, its order and slot_starts; both write
+    one row per splat and the dummy row. Returns also (walked, live)."""
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    b, limits = io["binned"], io["limits"]
+    walked = int((limits - b.tile_ranges[:, 0]).sum())
+    live = int(b.slot_starts[-1])
+    row = rt.F * 4
+    table = b.slot_starts.numel() * 4
+    out = b.slot_starts.numel() * row
+    return {"compact": walked * row + live * 8 + table + limits.numel() * 4 + out,
+            "segsum": live * row + live * 4 + table + out}, walked, live
+
+
+def time_reduction(io, card):
+    """The per-splat reduction on the training frame's rows: K5 on each
+    route, each grad_reduce route whole (compact: walk limits + K5;
+    segsum: K5; scatter: zeros + index_add_ + the dummy row's zero) and
+    torch.segment_reduce, each as the median of FRAMES calls by CUDA events
+    (host work included where the card waits for it) and as device time
+    per call by torch.profiler (K5's own kernel: kernel only), with each
+    route's byte bound."""
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    from gaussmart_tpu_torch.render import segsum
+    k5 = reduction_inputs(io)
+    b, rows, ints = io["binned"], io["rows"], io["ints"]
+    nbytes, walked, live = reduction_bytes(io)
+
+    def reduce(mode):
+        with grad_reduce_route(mode):
+            return rt.grad_reduce(rows, b.entry_ids, b.slot_starts.shape[0], b, ints)
+    calls = {f"K5, {route} route": (lambda r=route: segsum.segment_sum_gathered(*k5[r]))
+             for route in ("compact", "segsum")}
+    calls.update({f"grad_reduce {mode}": (lambda m=mode: reduce(m))
+                  for mode in rt.GRAD_REDUCE_MODES})
+    calls["torch.segment_reduce on the rows already in slot order"] = (
+        lambda: torch.segment_reduce(k5["rows_in_slots"], "sum", lengths=k5["lengths"],
+                                     axis=0))
+    parts = []
+    with torch.inference_mode():
+        for label, fn in calls.items():
+            wall = time_ms(fn, FRAMES)
+            device, top = device_kernel_ms(fn, FRAMES)
+            own = [(ms, calls) for name, ms, calls in top if "segsum_kernel" in name]
+            parts.append(f"{label} {wall:.4f} ms, device " + (
+                "not measured" if device is None else
+                f"{device:.4f} ms in {sum(c for _, _, c in top):g} launches"
+                + "".join(f" (segsum_kernel {ms / calls:.4f} ms per launch)"
+                          for ms, calls in own)))
+    print(f"[time] {card}: per-splat reduction of the training frame's K2 rows "
+          f"({live} live slots, {walked} below their tile's walk limit), median of "
+          f"{FRAMES} by CUDA events and device time per call by torch.profiler: "
+          + "; ".join(parts)
+          + f"; bounds: compact route {bound(walked * rt.F, nbytes['compact'])[0]:.4f} ms "
+          f"({nbytes['compact']} bytes: the walked rows, 8 bytes of slot map per live "
+          f"slot, slot_starts, the walk limits, the output), segsum route "
+          f"{bound(live * rt.F, nbytes['segsum'])[0]:.4f} ms ({nbytes['segsum']} bytes: "
+          f"every live row, 4 bytes of slot map per live slot, slot_starts, the output)")
 
 
 def time_seeded_kernels(io, width, height):
@@ -1431,10 +1666,11 @@ def main(argv=None):
     prep_small = small_prep(cam_s, arrays, dev)
     both = [(True, True), (False, False)]
     errs, _ = compare_kernels(prep_small, cam_s.width, cam_s.height, "small 64x32", both)
-    errs.update(compare_seeded(prep_small, cam_s.width, cam_s.height, "small 64x32",
-                               both)[0])
+    errs = worst(errs, compare_seeded(prep_small, cam_s.width, cam_s.height,
+                                      "small 64x32", both)[0])
     tiled_vs_dense(dev)
     state_t, cams_t, gts_t = bench_state(args.seed, N_SPLATS, WIDTH, HEIGHT, dev)
+    backward_determinism(state_t, cams_t, gts_t, dev)
     # the training step's frame: camera 0, SH bands above degree 0 masked
     # (iterations below 1000), no distortion or median terms in K2 and K4
     prep_t = frame_prep(state_t, cams_t[0], SH_DEGREE, active_degree=0)
@@ -1445,8 +1681,7 @@ def main(argv=None):
     # most of its K3/K4 time goes) and pass 2 (the fold's seed)
     e_pass1, io_pass1 = compare_seeded(prep_t, WIDTH, HEIGHT, label_t, both, k=0)
     e_pass2, io_pass2 = compare_seeded(prep_t, WIDTH, HEIGHT, label_t, both)
-    errs_t.update({k: max(e_pass1[k], e_pass2[k]) for k in e_pass1})
-    errs = {k: max(errs[k], errs_t[k]) for k in KERNELS}
+    errs = worst(errs, errs_t, e_pass1, e_pass2)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         # 4. the serving path
@@ -1461,15 +1696,14 @@ def main(argv=None):
         prep_s = frame_prep(state_s, cams[0].params(dev), SH_DEGREE)
         label_s = "full 776x584 serving frame"
         e_s, _ = compare_kernels(prep_s, WIDTH, HEIGHT, label_s, [(True, True)])
-        e_s.update(compare_seeded(prep_s, WIDTH, HEIGHT, label_s, [(True, True)])[0])
-        errs = {k: max(errs[k], e_s[k]) for k in KERNELS}
+        errs = worst(errs, e_s, compare_seeded(prep_s, WIDTH, HEIGHT, label_s,
+                                               [(True, True)])[0])
         _, ex_single = serve(model, state_s, dev)
         serve_sharded(model, ex_single, dev)
         row_sharded_render(dev)
 
         # 5. the training paths
-        counts, seg_counts, losses = train_path(root, args.seed, N_SPLATS, WIDTH,
-                                                HEIGHT, dev)
+        counts, losses = train_path(root, args.seed, N_SPLATS, WIDTH, HEIGHT, dev)
         mp_counts = train_slots_path(root, dev, losses)
 
     # 6. timings
@@ -1477,9 +1711,9 @@ def main(argv=None):
     ips = time_training(state_t, cams_t, gts_t, card)
     from gaussmart_tpu_torch.parallel.sharding import make_mesh
     mp_ips = time_training(state_t, cams_t, gts_t, card, mesh=make_mesh(N_SLOTS, dev))
-    times = time_kernels(io_t, N_SPLATS, WIDTH, HEIGHT)
+    times = time_kernels(io_t, WIDTH, HEIGHT)
     times.update(time_seeded_kernels(io_pass1, WIDTH, HEIGHT))
-    bounds = kernel_bounds(io_t, N_SPLATS, WIDTH, HEIGHT)
+    bounds = kernel_bounds(io_t, WIDTH, HEIGHT)
     bounds.update(seeded_bounds(io_pass1, WIDTH, HEIGHT))
     pass2 = time_seeded_kernels(io_pass2, WIDTH, HEIGHT)
     pass2_bounds = seeded_bounds(io_pass2, WIDTH, HEIGHT)
@@ -1489,6 +1723,7 @@ def main(argv=None):
           f"{time_dist_med_bwd(io_pass1, WIDTH, HEIGHT):.4f} ms (pass 1's stratum 1)")
     time_mp_launches(record_mp_launches(state_t, cams_t, gts_t, make_mesh(N_SLOTS, dev)),
                      WIDTH, HEIGHT, card)
+    time_reduction(io_t, card)
 
     def listed(ts):
         return "; ".join(f"{k} {ms:.4f} ms, plain {p:.4f} ms"
@@ -1506,10 +1741,10 @@ def main(argv=None):
           f"{WIDTH}x{HEIGHT}; Gaussian-sharded over {N_SLOTS} slots on the one card "
           f"{mp_ips:.4f} iterations/s")
 
-    # each kernel's launches on its main path: K1/K2 in single-device
-    # training, K5 on the segsum route, K3/K4 in Gaussian-sharded training
+    # each kernel's launches on its main path: K1/K2/K5 in single-device
+    # training, K3/K4 in Gaussian-sharded training
     launches = {"raster_fwd": counts["raster_fwd"], "raster_bwd": counts["raster_bwd"],
-                "segsum": seg_counts["segsum"],
+                "segsum": counts["segsum"],
                 "raster_fwd_seeded": mp_counts["raster_fwd_seeded"],
                 "raster_bwd_seeded": mp_counts["raster_bwd_seeded"]}
     print(json.dumps({"kernels": [{

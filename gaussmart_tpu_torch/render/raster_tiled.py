@@ -16,7 +16,9 @@ Three forward stages, the same semantics as the JAX package's tiled path:
                   counts held in int64, with one host sync per frame;
                   nothing is ever dropped. It also returns the per-splat
                   terms of its interval test (build_conics), which the
-                  kernel's cull reuses.
+                  kernel's cull reuses, and the backward's reduction plan:
+                  the splat-major work-slot map of its (splat, tile) pairs
+                  (inv_slots, slot_starts, slot_tile).
   composite_tiles the forward compositor K1: the CUDA kernel
                   csrc/raster_fwd.cu for CUDA tensors, composite_tiles_plain
                   for CPU tensors. A CUDA tensor never takes the plain
@@ -32,8 +34,10 @@ Three forward stages, the same semantics as the JAX package's tiled path:
 The backward (RasterCore, a torch.autograd.Function like the JAX custom
 VJP _raster_core) runs K2, composite_tiles_bwd: the reverse walk writes
 one gradient row of the 20 blob fields per (splat, tile) entry, and
-grad_reduce sums the rows per splat (index_add_, or the sorted segment
-sum K5 of render/segsum.py when GMT_GRAD_REDUCE=segsum). RasterCoreSeeded
+grad_reduce sums the rows per splat through the binning's work-slot map
+with K5 (render/segsum.py), in a fixed order (GMT_GRAD_REDUCE selects the
+route; only "scatter", index_add_, is not deterministic on the card).
+RasterCoreSeeded
 (the JAX _raster_core_seeded) runs K3 forward and K4 backward: K2 plus
 cotangents on the raw M1/M2 outputs, the seeded distortion terms and the
 seed's own gradient.
@@ -42,7 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -177,14 +181,34 @@ def _row_intervals(conics, center2d, sid, ty, tx0, nx):
     return cx0, torch.clamp_min(cx1 - cx0, 0)
 
 
-def binning(prep: Preprocessed, tiles_x: int, tiles_y: int
-            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (entry_ids [M'] int32 splat ids sorted by (tile, depth),
-    tile_ranges [tiles_x*tiles_y, 2] int32 (start, end) into entry_ids,
-    conics [N+1, FC], the build_conics rows its interval test used, which
-    composite_tiles takes for its cull). M' is the rect pair count; entries
-    past the last range are unused and hold N, the blob's zero row, so the
-    gradient reduction can leave them out."""
+class Binned(NamedTuple):
+    """binning's outputs. M' is the rect pair count (the buffer size).
+
+    entry_ids    [M'] int32 splat ids sorted by (tile, depth); entries past
+                 the last range are unused and hold N, the blob's zero row.
+    tile_ranges  [tiles_x*tiles_y, 2] int32 (start, end) into entry_ids.
+    conics       [N+1, FC], the build_conics rows of the interval test,
+                 which composite_tiles takes for its cull.
+    inv_slots    [M'] int32: the entry position of each work slot. Slots
+                 are the (splat, tile) pairs in splat-major order (a
+                 splat's tiles ascending), as the JAX package's inv_slots.
+    slot_starts  [N+1] int32: splat s owns slots [slot_starts[s],
+                 slot_starts[s+1]); slot_starts[N] is the live pair count.
+    slot_tile    [M'] int32: each slot's tile (for the walk-window skip).
+
+    Within a splat, slot order is entry order (one depth, ascending
+    tiles), so a sum in slot order adds a splat's rows in entry order."""
+    entry_ids: torch.Tensor
+    tile_ranges: torch.Tensor
+    conics: torch.Tensor
+    inv_slots: torch.Tensor
+    slot_starts: torch.Tensor
+    slot_tile: torch.Tensor
+
+
+def binning(prep: Preprocessed, tiles_x: int, tiles_y: int) -> Binned:
+    """The (splat, tile) pairs of the frame sorted by (tile, depth), and
+    the backward's reduction plan (Binned)."""
     dev = prep.depth.device
     N = prep.depth.shape[0]
     n_tiles = tiles_x * tiles_y
@@ -205,8 +229,9 @@ def binning(prep: Preprocessed, tiles_x: int, tiles_y: int
     # the frame's one host sync: rect row and (splat, tile) pair counts
     n_rows, n_rect = torch.stack([ny.sum(), (nx * ny).sum()]).tolist()
     if n_rect == 0:
-        return (torch.zeros(0, dtype=torch.int32, device=dev),
-                torch.zeros(n_tiles, 2, dtype=torch.int32, device=dev), conics)
+        empty = torch.zeros(0, dtype=torch.int32, device=dev)
+        return Binned(empty, torch.zeros(n_tiles, 2, dtype=torch.int32, device=dev), conics,
+                      empty, torch.zeros(N + 1, dtype=torch.int32, device=dev), empty)
 
     # splat -> (splat, tile row) over its rect rows
     sid = torch.repeat_interleave(torch.arange(N, device=dev), ny,
@@ -235,7 +260,16 @@ def binning(prep: Preprocessed, tiles_x: int, tiles_y: int
     edges = torch.searchsorted(
         key, torch.arange(n_tiles + 1, device=dev, dtype=torch.int64) << 32)
     tile_ranges = torch.stack([edges[:-1], edges[1:]], dim=1).to(torch.int32)
-    return entry_ids, tile_ranges.contiguous(), conics
+    # the reduction plan: the pairs were built splat-major, so the sort's
+    # permutation maps entry position -> slot and its inverse is one
+    # integer scatter; a splat's slots start at its first rect row's
+    # exclusive count (a splat with no rows gets an empty range)
+    inv_slots = torch.empty(n_rect, dtype=torch.int32, device=dev).scatter_(
+        0, perm, torch.arange(n_rect, dtype=torch.int32, device=dev))
+    first_row = torch.cat([row0, row0.new_full((1,), n_rows)])
+    slot_starts = torch.cat([cum.new_zeros(1), cum])[first_row].to(torch.int32)
+    return Binned(entry_ids, tile_ranges.contiguous(), conics, inv_slots, slot_starts,
+                  tile.to(torch.int32))
 
 
 def warp_pixels(device=None) -> torch.Tensor:
@@ -668,10 +702,10 @@ def composite_tiles_bwd(blob: torch.Tensor, entry_ids: torch.Tensor,
 
 
 def grad_reduce_mode() -> str:
-    """GMT_GRAD_REDUCE, read on every call: "compact" (default) and
-    "scatter" sum the gradient rows per splat with index_add_ (the JAX
-    package's XLA scatter-add), "segsum" with the sorted segment sum K5.
-    Any other value raises."""
+    """GMT_GRAD_REDUCE, read on every call, picks grad_reduce's route:
+    "compact" (default) reads through K5 only the rows inside each tile's
+    walk window, "segsum" every live row through K5, "scatter" adds every
+    row with index_add_. Any other value raises."""
     mode = os.environ.get("GMT_GRAD_REDUCE", "compact")
     if mode not in GRAD_REDUCE_MODES:
         raise ValueError(f"GMT_GRAD_REDUCE={mode!r}: expected one of "
@@ -679,49 +713,82 @@ def grad_reduce_mode() -> str:
     return mode
 
 
-def grad_reduce(rows: torch.Tensor, entry_ids: torch.Tensor, n_rows: int
+def walk_limits(ints: torch.Tensor, tile_ranges: torch.Tensor) -> torch.Tensor:
+    """[n_tiles] int32: each tile's start + min(the largest n_contrib of
+    its 256 pixels, its entry count), the JAX compact route's window
+    (raster_pallas.py::_grad_reduce). K2 and K4 write no row at or past it,
+    so those rows are exact zeros."""
+    h_pad, w_pad = ints.shape[1:]
+    n_contrib = ints[0].reshape(h_pad // TILE, TILE, w_pad // TILE, TILE)
+    walked = n_contrib.amax(dim=(1, 3)).reshape(-1)
+    return torch.minimum(tile_ranges[:, 0] + walked, tile_ranges[:, 1])
+
+
+def grad_reduce(rows: torch.Tensor, entry_ids: torch.Tensor, n_rows: int,
+                binned: Optional[Binned] = None, ints: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
     """Per-splat sums [n_rows, F] of the per-entry gradient rows, the last
-    (dummy) row zeroed (counterpart of the JAX _grad_reduce)."""
-    if grad_reduce_mode() == "segsum":
-        # the unused entries' id, the dummy row, sorts last and is left out
-        # of K5's segments: a single warp would otherwise sum them all
+    (dummy) row zero (counterpart of the JAX _grad_reduce), by
+    GMT_GRAD_REDUCE's route:
+
+      compact  K5 through `binned`'s work-slot map (inv_slots,
+               slot_starts), reading only the rows below each tile's walk
+               limit (walk_limits of the forward's `ints`); a skipped row
+               is an exact zero and adds 0 in its place.
+      segsum   K5 through the same map over every live row.
+      scatter  index_add_ over every row: float atomics on the card, so
+               the one route whose sums are not deterministic there.
+
+    compact and segsum add each splat's rows in entry order and agree to
+    the bit. Without `binned` the map comes from a stable sort of
+    `entry_ids` and nothing is skipped."""
+    mode = grad_reduce_mode()
+    if mode == "scatter":
+        out = rows.new_zeros((n_rows, rows.shape[1]))
+        out.index_add_(0, entry_ids.to(torch.int64), rows)
+        out[n_rows - 1] = 0.0
+        return out
+    walk = (None, None)
+    if binned is None:
+        # the unused entries' id, the dummy row, sorts last, past the splats'
+        # segments
         seg, perm = torch.sort(entry_ids, stable=True)
-        out = segsum.segment_sum_sorted(rows[perm].contiguous(), seg.contiguous(),
-                                        n_rows - 1)
-        return torch.cat([out, out.new_zeros((1, rows.shape[1]))])
-    out = rows.new_zeros((n_rows, rows.shape[1]))
-    out.index_add_(0, entry_ids.to(torch.int64), rows)
-    out[n_rows - 1] = 0.0
-    return out
+        order, starts = perm.to(torch.int32), segsum.sorted_slot_starts(seg, n_rows - 1)
+    else:
+        order, starts = binned.inv_slots, binned.slot_starts
+        if mode == "compact":
+            walk = (binned.slot_tile, walk_limits(ints, binned.tile_ranges))
+    return segsum.segment_sum_gathered(rows, order, starts, n_rows, *walk)
 
 
 class RasterCore(torch.autograd.Function):
     """K1 forward, K2 + grad_reduce backward (the JAX _raster_core custom
-    VJP). Returns (fb, ints); only fb channels C0..2, D, A, N0..2, med, dist
-    and T carry cotangents, M1, M2 and mt none, as in the JAX contract.
-    need_dist/need_med pick a backward that leaves out the distortion and
-    median terms (their cotangents must then be zero)."""
+    VJP) on binning's `binned`. Returns (fb, ints); only fb channels C0..2,
+    D, A, N0..2, med, dist and T carry cotangents, M1, M2 and mt none, as
+    in the JAX contract. need_dist/need_med pick a backward that leaves out
+    the distortion and median terms (their cotangents must then be zero)."""
 
     @staticmethod
-    def forward(ctx, blob, conics, entry_ids, tile_ranges, width, height, need_dist,
-                need_med):
-        fb, ints = composite_tiles(blob, conics, entry_ids, tile_ranges, width, height)
-        ctx.save_for_backward(blob, entry_ids, tile_ranges, fb, ints)
+    def forward(ctx, blob, binned, width, height, need_dist, need_med):
+        fb, ints = composite_tiles(blob, binned.conics, binned.entry_ids,
+                                   binned.tile_ranges, width, height)
+        ctx.save_for_backward(blob, fb, ints)
+        ctx.binned = binned
         ctx.meta = (width, height, need_dist, need_med)
         ctx.mark_non_differentiable(ints)
         return fb, ints
 
     @staticmethod
     def backward(ctx, g_fb, g_ints):
-        blob, entry_ids, tile_ranges, fb, ints = ctx.saved_tensors
+        blob, fb, ints = ctx.saved_tensors
+        b = ctx.binned
         width, height, need_dist, need_med = ctx.meta
         if g_fb is None:
-            return (None,) * 8
+            return (None,) * 6
         ct = g_fb[:CT].contiguous()
-        rows = composite_tiles_bwd(blob, entry_ids, tile_ranges, fb, ints, ct,
+        rows = composite_tiles_bwd(blob, b.entry_ids, b.tile_ranges, fb, ints, ct,
                                    width, height, need_dist, need_med)
-        return (grad_reduce(rows, entry_ids, blob.shape[0]),) + (None,) * 7
+        return (grad_reduce(rows, b.entry_ids, blob.shape[0], b, ints),) + (None,) * 5
 
 
 class RasterCoreSeeded(torch.autograd.Function):
@@ -733,26 +800,27 @@ class RasterCoreSeeded(torch.autograd.Function):
     carries none."""
 
     @staticmethod
-    def forward(ctx, blob, init, conics, entry_ids, tile_ranges, width, height,
-                need_dist, need_med):
-        fb, ints = composite_tiles(blob, conics, entry_ids, tile_ranges, width, height,
-                                   init=init)
-        ctx.save_for_backward(blob, init, entry_ids, tile_ranges, fb, ints)
+    def forward(ctx, blob, init, binned, width, height, need_dist, need_med):
+        fb, ints = composite_tiles(blob, binned.conics, binned.entry_ids,
+                                   binned.tile_ranges, width, height, init=init)
+        ctx.save_for_backward(blob, init, fb, ints)
+        ctx.binned = binned
         ctx.meta = (width, height, need_dist, need_med)
         ctx.mark_non_differentiable(ints)
         return fb, ints
 
     @staticmethod
     def backward(ctx, g_fb, g_ints):
-        blob, init, entry_ids, tile_ranges, fb, ints = ctx.saved_tensors
+        blob, init, fb, ints = ctx.saved_tensors
+        b = ctx.binned
         width, height, need_dist, need_med = ctx.meta
         if g_fb is None:
-            return (None,) * 9
+            return (None,) * 7
         ct = g_fb[:CT_SEEDED].contiguous()
-        rows, gi = composite_tiles_bwd(blob, entry_ids, tile_ranges, fb, ints, ct,
+        rows, gi = composite_tiles_bwd(blob, b.entry_ids, b.tile_ranges, fb, ints, ct,
                                        width, height, need_dist, need_med,
                                        init=init.contiguous())
-        return (grad_reduce(rows, entry_ids, blob.shape[0]), gi) + (None,) * 7
+        return (grad_reduce(rows, b.entry_ids, blob.shape[0], b, ints), gi) + (None,) * 5
 
 
 def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,
@@ -760,7 +828,7 @@ def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,
                     need_med_grad: bool = True,
                     init_state: Optional[Dict[str, torch.Tensor]] = None,
                     return_raw: bool = False,
-                    binned: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+                    binned: Optional[Binned] = None
                     ) -> Dict[str, torch.Tensor]:
     """Tiled render: image [3,H,W], allmap [7,H,W] (expected depth, alpha,
     normal x3, median depth, distortion) and n_dropped, which is always 0
@@ -777,17 +845,16 @@ def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,
     median, dist, T, M1, M2, and the detached min test transmittance
     min_test), as in the JAX package. Without init_state the raw M1/M2
     carry no gradient; pass an identity seed to differentiate them.
-    `binned` = binning(prep, ...)'s (entry_ids, tile_ranges, conics) lets
-    a caller that composites the same prep twice bin it once."""
+    `binned` = binning(prep, ...) lets a caller that composites the same
+    prep twice bin it once."""
     tiles_x, tiles_y = tile_grid(width, height)
     blob = build_blob(prep, means2d, width, height)
     if binned is None:
         with torch.no_grad():
             binned = binning(prep, tiles_x, tiles_y)
-    entry_ids, tile_ranges, conics = binned
     if init_state is None:
-        fb, _ = RasterCore.apply(blob, conics, entry_ids, tile_ranges, width, height,
-                                 need_dist_grad, need_med_grad)
+        fb, _ = RasterCore.apply(blob, binned, width, height, need_dist_grad,
+                                 need_med_grad)
     else:
         h_pad, w_pad = tiles_y * TILE, tiles_x * TILE
 
@@ -799,9 +866,8 @@ def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,
         init = torch.cat([pad_map(init_state["T"], 1.0),
                           pad_map(init_state.get("M1", zeros), 0.0),
                           pad_map(init_state.get("M2", zeros), 0.0)])
-        fb, _ = RasterCoreSeeded.apply(blob, init.contiguous(), conics, entry_ids,
-                                       tile_ranges, width, height, need_dist_grad,
-                                       need_med_grad)
+        fb, _ = RasterCoreSeeded.apply(blob, init.contiguous(), binned, width, height,
+                                       need_dist_grad, need_med_grad)
     maps = fb[:, :height, :width]
     image = maps[0:3] + maps[10][None] * bg[:, None, None]
     allmap = maps[[3, 4, 5, 6, 7, 8, 9]]

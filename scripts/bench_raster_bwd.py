@@ -83,7 +83,7 @@ def frames(dev):
                                  ("pass 1 stratum 1", cs.seeded_stratum(prep, W, H, 0))):
             n = p.depth.shape[0]
             blob = rt.build_blob(p, torch.zeros(n, 2, device=dev), W, H)
-            ids, ranges, conics = rt.binning(p, tx, ty)
+            ids, ranges, conics = rt.binning(p, tx, ty)[:3]
             fb, ints = rt.composite_tiles(blob, conics, ids, ranges, W, H, init=init)
             ct = cs.random_cotangent(fb, W, H, rt.CT if init is None else rt.CT_SEEDED)
             io = dict(blob=blob, ids=ids, ranges=ranges, fb=fb, ints=ints, ct=ct,

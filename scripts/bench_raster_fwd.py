@@ -104,7 +104,7 @@ def frames(dev):
         for label, (p, init) in (("raster_fwd training frame", (prep, None)),
                                  ("raster_fwd_seeded pass 1 stratum 1",
                                   cs.seeded_stratum(prep, W, H, 0))):
-            ids, ranges, conics = rt.binning(p, *tiles)
+            ids, ranges, conics = rt.binning(p, *tiles)[:3]
             cases[label] = dict(blob=rt.build_blob(p, torch.zeros(p.depth.shape[0], 2,
                                                                   device=dev), W, H),
                                 conics=conics, ids=ids, ranges=ranges, init=init,

@@ -2,6 +2,8 @@
 kernel on the card) and the per-splat reduction K5, against autograd of
 the port's own forward, the JAX package's tiled backward (interpret mode)
 and dense autodiff, and JAX segment_sum_sorted (interpret mode)."""
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -18,7 +20,7 @@ from gaussmart_tpu_torch.render import raster_tiled as rt
 from gaussmart_tpu_torch.render import segsum
 
 from test_raster import make_camera, make_scene
-from test_torch_kernels import _binned, _prep
+from test_torch_kernels import _binned, _bwd, _bwd_case, _prep
 
 torch.set_num_threads(1)
 
@@ -97,12 +99,10 @@ def _touch_every_channel(img, am, target):
             + 0.01 * (am[2:5] ** 2).sum() + 0.02 * am[5].sum() + 0.01 * am[1].sum())
 
 
-def test_tiled_gradients_match_jax_tiled_and_dense():
-    """The port's tiled render differentiated through RasterCore (plain K2
-    on the CPU) against JAX rasterize_tiled's custom VJP in interpret mode
-    and JAX dense autodiff, with the loss and tolerances of
-    tests/test_raster_pallas.py::test_gradients_match_dense (atol
-    3e-3 * max|g|, rtol 2e-2: binning truncation against the dense oracle)."""
+@functools.lru_cache(maxsize=None)
+def _jax_gradients():
+    """(dense loss, JAX dense gradients, JAX tiled gradients) of
+    _touch_every_channel on _grad_inputs() at 32x32, as numpy arrays."""
     (xyz, scales, quats, opac, shs), target = _grad_inputs()
     n = xyz.shape[0]
     cam = make_camera(width=32, height=32)
@@ -120,6 +120,24 @@ def test_tiled_gradients_match_jax_tiled_and_dense():
     jargs = tuple(jnp.asarray(a) for a in (xyz, scales, opac, shs)) + (jnp.zeros((n, 2)),)
     g_dense = jax.grad(lambda *a: jloss("dense", *a), argnums=tuple(range(5)))(*jargs)
     g_tiled = jax.grad(lambda *a: jloss("pallas", *a), argnums=tuple(range(5)))(*jargs)
+    return (float(jloss("dense", *jargs)), [np.asarray(g) for g in g_dense],
+            [np.asarray(g) for g in g_tiled])
+
+
+@pytest.mark.parametrize("mode", rt.GRAD_REDUCE_MODES)
+def test_tiled_gradients_match_jax_tiled_and_dense(mode, monkeypatch):
+    """The port's tiled render differentiated through RasterCore (plain K2
+    on the CPU, then each GMT_GRAD_REDUCE route) against JAX
+    rasterize_tiled's custom VJP in interpret mode and JAX dense autodiff,
+    with the loss and tolerances of
+    tests/test_raster_pallas.py::test_gradients_match_dense (atol
+    3e-3 * max|g|, rtol 2e-2: binning truncation against the dense oracle)."""
+    monkeypatch.setenv("GMT_GRAD_REDUCE", mode)
+    (xyz, scales, quats, opac, shs), target = _grad_inputs()
+    n = xyz.shape[0]
+    cam = make_camera(width=32, height=32)
+    bg = np.array([0.3, 0.3, 0.3], np.float32)
+    l_ref, g_dense, g_tiled = _jax_gradients()
 
     tcam = TCamera(uid=0, colmap_id=0, image_name="t", R=cam.R, T=cam.T,
                    fovx=cam.fovx, fovy=cam.fovy, width=32, height=32)
@@ -130,12 +148,11 @@ def test_tiled_gradients_match_jax_tiled_and_dense():
     out = rt.rasterize_tiled(prep, means2d, torch.tensor(bg), 32, 32)
     loss = _touch_every_channel(out["image"], out["allmap"], torch.tensor(target))
     loss.backward()
-    l_ref = float(jloss("dense", *jargs))
     assert abs(loss.item() - l_ref) < 1e-3 * max(1.0, abs(l_ref))
     ours = [x.grad.numpy() for x in leaves] + [means2d.grad.numpy()]
     for name, mine, gd, gt in zip(["xyz", "scales", "opac", "shs", "means2d"], ours,
                                   g_dense, g_tiled):
-        for ref, what in ((np.asarray(gd), "dense"), (np.asarray(gt), "JAX tiled")):
+        for ref, what in ((gd, "dense"), (gt, "JAX tiled")):
             scale = np.abs(ref).max() + 1e-6
             np.testing.assert_allclose(mine, ref, atol=3e-3 * scale, rtol=2e-2,
                                        err_msg=f"{name} vs {what}")
@@ -214,12 +231,16 @@ def test_plain_segsum_matches_jax(case):
 
 
 def test_grad_reduce_modes_agree_and_unknown_mode_raises(monkeypatch):
-    """grad_blob under GMT_GRAD_REDUCE=compact (index_add_) and segsum (a
-    stable sort by splat id, then K5's plain version) agree to float32
-    noise (1e-6 of the column scale; only the order of the sums differs);
-    the variable is read on every backward, and anything else raises."""
+    """grad_blob under each GMT_GRAD_REDUCE route with binning's plan:
+    compact (K5's plain version over the rows inside each tile's walk
+    window) equals segsum (every live row) to the bit, and each route
+    equals its planless form (a stable sort of the ids); scatter (index_add_) agrees
+    within 1e-6 of the column scale (only the order of its sums may
+    differ). The dummy row is zero; the variable is read on every backward,
+    and anything else raises."""
     prep, width, height = _prep("ragged")
     blob, ids, ranges = _binned(prep, width, height)
+    b = rt.binning(prep, *rt.tile_grid(width, height))
     fb, ints = rt.composite_tiles_plain(blob, ids, ranges, width, height)
     ct = torch.tensor(np.random.default_rng(2).normal(
         size=(rt.CT,) + fb.shape[1:]).astype(np.float32))
@@ -227,11 +248,41 @@ def test_grad_reduce_modes_agree_and_unknown_mode_raises(monkeypatch):
     out = {}
     for mode in ("compact", "scatter", "segsum"):
         monkeypatch.setenv("GMT_GRAD_REDUCE", mode)
-        out[mode] = rt.grad_reduce(rows, ids, blob.shape[0])
+        out[mode] = rt.grad_reduce(rows, ids, blob.shape[0], b, ints)
         assert torch.all(out[mode][-1] == 0)
-    assert torch.equal(out["compact"], out["scatter"])
+        assert torch.equal(out[mode], rt.grad_reduce(rows, ids, blob.shape[0]))
+    assert torch.equal(out["compact"], out["segsum"])
     scale = out["compact"].abs().amax(dim=0) + 1e-30
-    assert ((out["segsum"] - out["compact"]).abs() / scale).max() <= 1e-6
+    assert ((out["scatter"] - out["compact"]).abs() / scale).max() <= 1e-6
     monkeypatch.setenv("GMT_GRAD_REDUCE", "segsun")
     with pytest.raises(ValueError, match="GMT_GRAD_REDUCE"):
         rt.grad_reduce(rows, ids, blob.shape[0])
+
+
+@pytest.mark.parametrize("scene", ["ragged", "deep"])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_grad_reduce_routes_agree_with_the_plan(scene, seeded, monkeypatch):
+    """On plain K2 / K4 rows (the deep scene's walk windows leave many rows
+    out): compact == segsum to the bit, and scatter within 1e-6 of each
+    column's scale, through binning's plan; the compact route's plain K5
+    reads only slots below the walk limit."""
+    case = _bwd_case(scene, seeded, "cpu")
+    rows, _ = _bwd(case, (True, True), plain=True)
+    b, n_rows = case["binned"], case["blob"].shape[0]
+    out = {}
+    for mode in rt.GRAD_REDUCE_MODES:
+        monkeypatch.setenv("GMT_GRAD_REDUCE", mode)
+        out[mode] = rt.grad_reduce(rows, b.entry_ids, n_rows, b, case["ints"])
+    assert torch.equal(out["compact"], out["segsum"])
+    scale = out["compact"].abs().amax(dim=0) + 1e-30
+    assert ((out["scatter"] - out["compact"]).abs() / scale).max() <= 1e-6
+    # the same sums with every row past a walk limit poisoned: compact
+    # never reads one
+    limit = rt.walk_limits(case["ints"], b.tile_ranges)
+    pos = torch.arange(rows.shape[0], dtype=torch.int32)
+    tile = torch.searchsorted(b.tile_ranges[:, 1].contiguous(), pos, right=True)
+    past = pos >= limit[tile.clamp(max=limit.shape[0] - 1)]
+    poisoned = torch.where(past[:, None], torch.nan, rows)
+    monkeypatch.setenv("GMT_GRAD_REDUCE", "compact")
+    assert torch.equal(rt.grad_reduce(poisoned, b.entry_ids, n_rows, b, case["ints"]),
+                       out["compact"])

@@ -14,8 +14,10 @@ import torch
 from gaussmart_tpu_torch.cameras import Camera
 from gaussmart_tpu_torch.ops.sh import rgb2sh
 from gaussmart_tpu_torch.render import raster_tiled as rt
+from gaussmart_tpu_torch.render import segsum
 from gaussmart_tpu_torch.render.raster_common import (ALPHA_EPS, ALPHA_MAX,
-                                                       NEAR_PLANE, preprocess)
+                                                       NEAR_PLANE, Preprocessed,
+                                                       preprocess)
 
 torch.set_num_threads(1)
 
@@ -57,7 +59,7 @@ def _binned(prep, width, height):
     n = prep.depth.shape[0]
     blob = rt.build_blob(prep, torch.zeros(n, 2, device=prep.depth.device),
                          width, height)
-    ids, ranges, _ = rt.binning(prep, tx, ty)
+    ids, ranges, _ = rt.binning(prep, tx, ty)[:3]
     return blob, ids, ranges
 
 
@@ -142,7 +144,7 @@ def test_band_cull_keeps_every_contributing_warp(scene, shifted):
                            * (2.0 / np.array([width, height], np.float32))) \
         if shifted else torch.zeros(n, 2)
     blob = rt.build_blob(prep, means2d, width, height)
-    ids, ranges, conics = rt.binning(prep, *rt.tile_grid(width, height))
+    ids, ranges, conics = rt.binning(prep, *rt.tile_grid(width, height))[:3]
     assert torch.equal(conics, rt.build_conics(prep))
     mask = rt.band_mask_plain(blob, conics, ids, ranges, width)
     hits = _warp_hits(blob, ids, ranges, width)
@@ -199,7 +201,6 @@ def _random_cotangent(fb, seed=1):
 
 
 def test_backward_and_segsum_on_cpu_are_the_plain_versions():
-    from gaussmart_tpu_torch.render import segsum
     prep, width, height = _prep("ragged")
     blob, ids, ranges = _binned(prep, width, height)
     fb, ints = rt.composite_tiles_plain(blob, ids, ranges, width, height)
@@ -211,11 +212,118 @@ def test_backward_and_segsum_on_cpu_are_the_plain_versions():
     seg, perm = torch.sort(ids, stable=True)
     out = segsum.segment_sum_sorted(rows[perm], seg, blob.shape[0])
     assert torch.equal(out, segsum.segment_sum_sorted_plain(rows[perm], seg, blob.shape[0]))
+    b = rt.binning(prep, *rt.tile_grid(width, height))
+    walk = (b.slot_tile, rt.walk_limits(ints, b.tile_ranges))
+    out = segsum.segment_sum_gathered(rows, b.inv_slots, b.slot_starts, blob.shape[0], *walk)
+    assert torch.equal(out, segsum.segment_sum_gathered_plain(
+        rows, b.inv_slots, b.slot_starts, blob.shape[0], *walk))
     assert (rt.bwd_launches, segsum.launches) == before
     with pytest.raises(ValueError, match="CPU or CUDA"):
         rt.composite_tiles_bwd(blob.to("meta"), ids, ranges, fb, ints, ct, width, height)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         segsum.segment_sum_sorted(rows.to("meta"), seg, blob.shape[0])
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        segsum.segment_sum_gathered(rows.to("meta"), b.inv_slots, b.slot_starts)
+
+
+def _stratum(name, k=3, slots=4):
+    """Depth stratum k of `slots` of a scene's splats, cut and padded with
+    invalid zero rows as parallel/sharding.render_gaussian_sharded cuts
+    them: (prep, width, height)."""
+    prep, width, height = _prep(name)
+    order = torch.argsort(torch.where(prep.valid, prep.depth, torch.inf), stable=True)
+    per = -(-order.shape[0] // slots) + 3
+    part = order[k * per:(k + 1) * per]
+    return Preprocessed(*(torch.cat([x[part], x.new_zeros((per - part.shape[0],)
+                                                          + x.shape[1:])])
+                          for x in prep)), width, height
+
+
+@pytest.mark.parametrize("scene", ["ragged", "deep", "stratum"])
+def test_binning_plan_maps_each_splat_to_its_entries(scene):
+    """binning's reduction plan: inv_slots[slot_starts[s]:slot_starts[s+1]]
+    is exactly the ascending entry positions that hold splat s (splats with
+    none, padding rows of a stratum included, get empty ranges),
+    slot_starts[N] is the live pair count, inv_slots is a permutation of
+    the entry buffer, and each slot's slot_tile is the tile whose range
+    holds its entry."""
+    prep, width, height = _stratum("ragged") if scene == "stratum" else _prep(scene)
+    b = rt.binning(prep, *rt.tile_grid(width, height))
+    n = prep.depth.shape[0]
+    live = int(b.tile_ranges[-1, 1])
+    assert b.slot_starts.shape == (n + 1,) and b.slot_starts.dtype == torch.int32
+    assert int(b.slot_starts[0]) == 0 and int(b.slot_starts[n]) == live
+    assert torch.equal(torch.sort(b.inv_slots.long())[0], torch.arange(b.entry_ids.shape[0]))
+    for s in range(n):
+        got = b.inv_slots[b.slot_starts[s]:b.slot_starts[s + 1]].long()
+        assert torch.equal(got, torch.nonzero(b.entry_ids == s)[:, 0])
+    pos = b.inv_slots[:live].long()
+    tile = torch.searchsorted(b.tile_ranges[:, 1].contiguous(), pos.to(torch.int32),
+                              right=True)
+    assert torch.equal(b.slot_tile[:live].long(), tile)
+    if scene == "stratum":
+        assert (b.slot_starts[1:] == b.slot_starts[:-1]).any()
+
+
+@pytest.mark.parametrize("scene", ["ragged", "deep"])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_plain_backward_writes_no_row_past_the_walk_limit(scene, seeded):
+    """Every row of plain K2 / K4 at or past its tile's walk limit
+    (walk_limits: start + min(the tile's largest n_contrib, count)) is an
+    exact zero, which is what lets the compact route skip it; on the deep
+    scene the limit leaves many rows out."""
+    case = _bwd_case(scene, seeded, "cpu")
+    rows, _ = _bwd(case, (True, True), plain=True)
+    ranges = case["ranges"]
+    limit = rt.walk_limits(case["ints"], ranges)
+    assert limit.dtype == torch.int32
+    assert torch.all((ranges[:, 0] <= limit) & (limit <= ranges[:, 1]))
+    pos = torch.arange(rows.shape[0])
+    live = pos < int(ranges[-1, 1])
+    tile = torch.searchsorted(ranges[:, 1].contiguous(), pos.to(torch.int32), right=True)
+    past = live & (pos >= limit[tile.clamp(max=limit.shape[0] - 1)])
+    assert torch.all(rows[past] == 0.0) and torch.all(rows[~live] == 0.0)
+    assert torch.count_nonzero(rows[live & ~past]) > 0
+    if scene == "deep":
+        assert past.sum() > live.sum() // 4
+
+
+def _slot_case(seed=0, n=40, max_len=9, n_tiles=7):
+    """Random rows [M, 20], a permutation order, slot_starts with empty
+    segments, slot_tile and tile_limit that skip about a third of the
+    slots."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, max_len + 1, n)
+    counts[[0, 5]] = 0
+    w = int(counts.sum())
+    rows = rng.standard_normal((w + 6, 20)).astype(np.float32)
+    order = rng.permutation(w + 6)[:w].astype(np.int32)
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    slot_tile = rng.integers(0, n_tiles, w).astype(np.int32)
+    tile_limit = rng.integers(0, w + 6, n_tiles).astype(np.int32)
+    return [torch.tensor(a) for a in (rows, order, starts, slot_tile, tile_limit)]
+
+
+def test_gathered_plain_adds_each_segment_in_slot_order():
+    """segment_sum_gathered_plain against a float32 loop over each
+    segment's slots in order from zero, to the bit: through a permutation,
+    with the walk test (a skipped slot adds 0.0), without an order (slot k
+    reads row k), and with rows past the segments in the output zero."""
+    rows, order, starts, slot_tile, tile_limit = _slot_case()
+    n = starts.shape[0] - 1
+    for use_order, walk in ((True, False), (True, True), (False, False)):
+        ref = np.zeros((n + 2, 20), np.float32)
+        for s in range(n):
+            for k in range(int(starts[s]), int(starts[s + 1])):
+                r = int(order[k]) if use_order else k
+                if not walk or r < int(tile_limit[slot_tile[k]]):
+                    ref[s] = ref[s] + rows[r].numpy()
+                else:
+                    ref[s] = ref[s] + np.float32(0.0)
+        got = segsum.segment_sum_gathered_plain(
+            rows, order if use_order else None, starts, n + 2,
+            *((slot_tile, tile_limit) if walk else (None, None)))
+        assert np.array_equal(got.numpy(), ref)
 
 
 def _column_err(got, ref):
@@ -253,12 +361,11 @@ def test_backward_kernel_matches_plain_on_card(scene, need):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_seg,max_count", [(1, 3000), (1000, 9), (50_000, 30)])
 def test_segsum_kernel_matches_plain_on_card(n_seg, max_count):
-    """segsum against its plain version (index_add_): per column within
-    1e-5 of the column's largest value (sums of up to 3000 rows, each
-    segment's in row order against atomics in any order)."""
+    """segsum against its plain version on a CPU copy (each segment's rows
+    added in row order): per column within 1e-5 of the column's largest
+    value (sums of up to 3000 rows)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: segsum runs only on the card")
-    from gaussmart_tpu_torch.render import segsum
     rng = np.random.default_rng(n_seg)
     counts = rng.integers(0, max_count + 1, n_seg)
     ids = torch.tensor(np.repeat(np.arange(n_seg), counts), dtype=torch.int32,
@@ -268,11 +375,70 @@ def test_segsum_kernel_matches_plain_on_card(n_seg, max_count):
     before = segsum.launches
     out = segsum.segment_sum_sorted(rows, ids, n_seg)
     assert segsum.launches == before + 1
-    ref = segsum.segment_sum_sorted_plain(rows, ids, n_seg)
-    torch.cuda.synchronize()
-    assert out.shape == (n_seg, 20) and _column_err(out, ref) <= 1e-5
+    ref = segsum.segment_sum_sorted_plain(rows.cpu(), ids.cpu(), n_seg)
+    assert out.shape == (n_seg, 20) and _column_err(out.cpu(), ref) <= 1e-5
     with pytest.raises(ValueError, match="seg_ids"):
         segsum.segment_sum_sorted(rows, ids.long(), n_seg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", [False, True])
+@pytest.mark.parametrize("seed,max_len", [(0, 9), (1, 75), (2, 400)])
+def test_segsum_gathered_kernel_matches_plain_on_card(walk, seed, max_len):
+    """segsum through a permutation `order`, with and without a walk test
+    that skips slots, against segment_sum_gathered_plain on CPU copies:
+    per column within 1e-5 of its largest value; the output rows past the
+    segments are zero, and a second launch is bit-equal to the first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: segsum runs only on the card")
+    case = _slot_case(seed, n=20_000 if max_len < 100 else 500, max_len=max_len,
+                      n_tiles=300)
+    rows, order, starts, slot_tile, tile_limit = (x.cuda() for x in case)
+    walk_args = (slot_tile, tile_limit) if walk else (None, None)
+    n = starts.shape[0] - 1
+    before = segsum.launches
+    out = segsum.segment_sum_gathered(rows, order, starts, n + 3, *walk_args)
+    again = segsum.segment_sum_gathered(rows, order, starts, n + 3, *walk_args)
+    assert segsum.launches == before + 2
+    ref = segsum.segment_sum_gathered_plain(*case[:3], n + 3,
+                                            *(case[3:] if walk else (None, None)))
+    assert out.shape == (n + 3, 20) and _column_err(out.cpu(), ref) <= 1e-5
+    assert torch.equal(out, again) and torch.all(out[n:] == 0.0)
+    with pytest.raises(ValueError, match="tile_limit"):
+        segsum.segment_sum_gathered(rows, order, starts, n, slot_tile, None)
+    with pytest.raises(ValueError, match="16-byte"):
+        segsum.segment_sum_gathered(torch.empty(rows.numel() + 1, device="cuda")[1:]
+                                    .view_as(rows), order, starts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["ragged", "wide", "deep"])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_compact_and_segsum_agree_on_card(scene, seeded, monkeypatch):
+    """grad_reduce on K2 / K4's rows of a binned frame: the compact route
+    (walked rows only) equals the segsum route (every live row) to the bit,
+    each launches K5 once and two launches are bit-equal; both hold within
+    1e-5 of each column's max against the plain route on CPU copies, and
+    the scatter route (index_add_) against them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: segsum runs only on the card")
+    case = _bwd_case(scene, seeded, "cuda")
+    rows, _ = _bwd(case, (True, True))
+    b = case["binned"]
+    n_rows = case["blob"].shape[0]
+    out = {}
+    for mode in ("compact", "segsum", "scatter"):
+        monkeypatch.setenv("GMT_GRAD_REDUCE", mode)
+        before = segsum.launches
+        out[mode] = rt.grad_reduce(rows, b.entry_ids, n_rows, b, case["ints"])
+        assert segsum.launches == before + (mode != "scatter")
+    monkeypatch.setenv("GMT_GRAD_REDUCE", "compact")
+    again = rt.grad_reduce(rows, b.entry_ids, n_rows, b, case["ints"])
+    assert torch.equal(out["compact"], out["segsum"]) and torch.equal(out["compact"], again)
+    b_cpu = rt.Binned(*(x.cpu() for x in b))
+    ref = rt.grad_reduce(rows.cpu(), b_cpu.entry_ids, n_rows, b_cpu, case["ints"].cpu())
+    assert _column_err(out["compact"].cpu(), ref) <= 1e-5
+    assert _column_err(out["scatter"].cpu(), ref) <= 1e-5
 
 
 def _seed_maps(width, height, device, seed=3):
@@ -402,15 +568,18 @@ def test_seeded_render_on_card_never_takes_the_plain_versions(monkeypatch):
 
 def _bwd_case(scene, seeded, device):
     """A binned frame of `scene`, its forward outputs (K3's from a seed
-    when `seeded`), and a random cotangent: composite_tiles_bwd's inputs."""
+    when `seeded`), and a random cotangent: composite_tiles_bwd's inputs,
+    and the binning's reduction plan."""
     prep, width, height = _prep(scene, device=device)
-    blob, ids, ranges = _binned(prep, width, height)
+    b = rt.binning(prep, *rt.tile_grid(width, height))
+    blob = rt.build_blob(prep, torch.zeros(prep.depth.shape[0], 2, device=device), width,
+                         height)
     init = _seed_maps(width, height, device) if seeded else None
-    fb, ints = rt.composite_tiles(blob, rt.build_conics(prep), ids, ranges, width, height,
+    fb, ints = rt.composite_tiles(blob, b.conics, b.entry_ids, b.tile_ranges, width, height,
                                   init=init)
     ct = (_seeded_cotangent if seeded else _random_cotangent)(fb)
-    return dict(blob=blob, ids=ids, ranges=ranges, fb=fb, ints=ints, ct=ct,
-                width=width, height=height, init=init)
+    return dict(blob=blob, ids=b.entry_ids, ranges=b.tile_ranges, fb=fb, ints=ints, ct=ct,
+                width=width, height=height, init=init, binned=b)
 
 
 def _bwd(case, need, plain=False):

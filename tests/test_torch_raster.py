@@ -92,7 +92,7 @@ def test_binning_entry_sets_match_jax(scene):
                                                          work_mult=12)
     assert int(n_dropped) == 0
     pidx, starts, counts = map(np.asarray, (pidx, starts, counts))
-    ids, ranges, conics = rt.binning(tprep, tx, ty)
+    ids, ranges, conics = rt.binning(tprep, tx, ty)[:3]
     assert ranges.shape == (tx * ty, 2) and ranges.dtype == torch.int32
     assert conics.shape == (tprep.depth.shape[0] + 1, rt.FC)
     depth = tprep.depth.numpy()
@@ -138,7 +138,7 @@ def test_heavy_overlap_terminates_early_and_drops_nothing():
     assert int(out["n_dropped"]) == 0
     tx, ty = rt.tile_grid(64, 32)
     blob = rt.build_blob(tprep, torch.zeros(n, 2), 64, 32)
-    ids, ranges, _ = rt.binning(tprep, tx, ty)
+    ids, ranges, _ = rt.binning(tprep, tx, ty)[:3]
     fb, ints = rt.composite_tiles_plain(blob, ids, ranges, 64, 32)
     mt = fb[rt.FB_CHANNELS.index("mt")]
     ended = mt < trc.T_EPS
