@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths, on one device
-and over device slots, on one CUDA card and check them.
+"""Drive the PyTorch/CUDA port's serving, training, mesh-export and eval
+paths, on one device and over device slots, on one CUDA card; check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -57,7 +57,20 @@ Phases, each printing its own lines; any failure exits non-zero:
      a pixel takes); K2 and K4 also
      with the distortion and median terms; K3 and K4 on each of the 8
      launches of one Gaussian-sharded step (recorded from the step
-     itself), with their sums per step.
+     itself), with their sums per step;
+  7. the mesh export and evaluation paths: a sphere model (MESH_SPLATS surfels tangent to the unit sphere, one
+     grey, SH degree 3; MESH_VIEWS views at 776x584 on a ring, 2 of them
+     test views) exported by render_cli without --skip_mesh, bounded at
+     the default --mesh_res 1024 (K1: 2 renders per train view + 1 per
+     test view) and --unbounded at UNBOUNDED_RES, each mesh and its _post
+     loaded and held to the sphere and the bounded one to the grey; the
+     card's TSDF grid after 4 views against a CPU copy; metrics_cli
+     without LPIPS weights (LPIPS null) and with random VGG weights (its
+     LPIPS against the CPU); then the stages' times: TSDF integrate per
+     view (on the bounded run's grid and at the 200M-voxel cap, with its
+     byte bound), the int8 pull, marching, welding and colour lookup,
+     fuse_samples per 128^3 block, LPIPS(vgg) per pair and the CLIs' wall
+     times.
 N_SLOTS slots on one card measure the cost of the two-pass fold, not
 scaling across cards.
 Each path's kernel launch counts are set to 0 just before it runs and read
@@ -78,6 +91,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -131,6 +145,19 @@ GRAD_ATOL, GRAD_RTOL = 3e-3, 2e-2   # tiled vs dense gradients (x max |g|)
 PNG_TOL = 1               # saved render vs in-memory render, 8-bit levels
 SHARDED_TOL = 5e-4        # Gaussian-sharded vs single-device renders (test_parallel.py)
 ROW_TOL = 1e-5            # row-sharded vs single-device dense render
+# the mesh phase: a sphere of MESH_SPLATS surfels of one grey seen by
+# MESH_VIEWS cameras on a ring; the unbounded run's resolution is cut from
+# render_cli's default 1024 to keep the script within its time limit
+MESH_SPLATS, MESH_VIEWS, MESH_RING, MESH_GREY = 100_000, 16, 4.0, 0.6
+UNBOUNDED_RES = 512
+# the median depth (2DGS's setting for bounded objects, as DTU): the mean
+# depth of a pixel on a silhouette blends the surfels along its grazing
+# ray, which floats surface fragments up to ~0.07 inside the sphere
+MESH_DEPTH_RATIO = 1.0
+CAP_MESH_RES = 4096       # a bounded grid past the 200M-voxel cap, for its times
+TSDF_TOL = 1e-5           # the card's TSDF grid vs a CPU copy, absolute
+COLOUR_TOL = 0.02         # mean vertex colour vs the splats' colour
+LPIPS_RTOL = 1e-4         # metrics_cli's LPIPS on the card vs the CPU, relative
 
 
 def card_line() -> str:
@@ -1027,6 +1054,340 @@ def train_slots_path(root, device, single_losses):
     return counts
 
 
+# --- the mesh and eval paths ---------------------------------------------------
+
+def sphere_params(seed, n, sh_degree):
+    """n surfels on the unit sphere at the origin, each tangent to it (its
+    normal radial), both scales the mean spacing, opacity 0.99 and the
+    constant colour MESH_GREY at SH degree `sh_degree`."""
+    from gaussmart_tpu_torch.ops.sh import rgb2sh
+    rng = np.random.default_rng(seed)
+    nrm = rng.normal(size=(n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    # the rotation taking +z to the normal: (1 + n_z, -n_y, n_x, 0) in (w,x,y,z)
+    q = np.stack([1 + nrm[:, 2], -nrm[:, 1], nrm[:, 0], np.zeros(n)], axis=1)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    k = (sh_degree + 1) ** 2
+    return {"xyz": nrm.astype(np.float32),
+            "features_dc": np.full((n, 1, 3), rgb2sh(MESH_GREY), np.float32),
+            "features_rest": np.zeros((n, k - 1, 3), np.float32),
+            "scaling": np.full((n, 2), np.log(np.sqrt(4 * np.pi / n)), np.float32),
+            "rotation": q.astype(np.float32),
+            "opacity": np.full((n, 1), np.log(0.99 / 0.01), np.float32)}
+
+
+def ring_cameras(n_views, width, height):
+    """n_views cameras on a ring of radius MESH_RING in the xz plane, each
+    looking at the origin with +y up. Views 0 and 8 are llffhold-8's test
+    views; on an even ring view 8 would stand opposite view 0, and the
+    bounding sphere of two opposite views (trajectory.focus_point_fn) is
+    singular, so views 8 and 12 swap places."""
+    from gaussmart_tpu_torch.cameras import Camera
+    place = list(range(n_views))
+    place[8], place[12] = place[12], place[8]
+    cams = []
+    for i in range(n_views):
+        a = 2 * np.pi * place[i] / n_views
+        back = np.array([np.cos(a), 0.0, np.sin(a)])
+        c2w = np.eye(4)              # COLMAP axes: x right, y down, z forward
+        c2w[:3, 2] = -back
+        c2w[:3, 1] = [0.0, -1.0, 0.0]
+        c2w[:3, 0] = np.cross(c2w[:3, 1], c2w[:3, 2])
+        c2w[:3, 3] = MESH_RING * back
+        w2c = np.linalg.inv(c2w)
+        cams.append(Camera(uid=i, colmap_id=i, image_name=f"c{i:03d}", R=w2c[:3, :3].T,
+                           T=w2c[:3, 3], fovx=FOVX, fovy=FOVY, width=width,
+                           height=height))
+    return cams
+
+
+def write_sphere_model(root, seed, n, width, height, n_views):
+    """The mesh phase's trained-model directory: a COLMAP source of
+    ring_cameras with grey GT images, the sphere's surfels as the snapshot
+    at point_cloud/iteration_ITERATION, cfg_args.json with eval on
+    (llffhold 8: views 0 and 8 for testing)."""
+    from gaussmart_tpu_torch.io.gaussian_ply import save_gaussian_ply
+    from gaussmart_tpu_torch.models.gaussians import state_from_numpy
+    src, model = os.path.join(root, "sphere_scene"), os.path.join(root, "sphere_model")
+    params = sphere_params(seed, n, SH_DEGREE)
+    state = state_from_numpy(params, np.ones(n, bool), np.zeros(n, np.int32),
+                             SH_DEGREE, SH_DEGREE, 1.0, device="cpu")
+    save_gaussian_ply(os.path.join(model, "point_cloud", f"iteration_{ITERATION}",
+                                   "point_cloud.ply"), state)
+    cams = ring_cameras(n_views, width, height)
+    grey = np.full((height, width, 3), round(MESH_GREY * 255), np.uint8)
+    pts = params["xyz"][:1000]
+    write_colmap_source(src, cams, [grey] * n_views, pts, np.full((len(pts), 3), 153.0))
+    with open(os.path.join(model, "cfg_args.json"), "w") as f:
+        json.dump({"source_path": src, "model_path": model, "sh_degree": SH_DEGREE,
+                   "images": "images", "resolution": 1, "white_background": False,
+                   "eval": True, "backend": "auto"}, f, indent=2)
+    return model
+
+
+def mesh_cli(model, device, fwd, args=()):
+    """render_cli on the sphere model, counted: the extractor, wall
+    seconds; fails unless K1 launched `fwd` times and nothing else."""
+    from gaussmart_tpu_torch import render_cli
+    zero_counts()
+    t0 = time.perf_counter()
+    ex = render_cli.main(["-m", model, "--device", str(device),
+                          "--depth_ratio", str(MESH_DEPTH_RATIO), *args])
+    counts = read_counts()
+    secs = time.perf_counter() - t0
+    print(f"[mesh] render_cli --depth_ratio {MESH_DEPTH_RATIO} "
+          f"{' '.join(args) or '(bounded, --mesh_res 1024)'}: "
+          f"{secs:.2f} s; launches {counts} (expected raster_fwd {fwd})")
+    if not only(counts, raster_fwd=fwd):
+        fail("[mesh] K1 launch count check failed")
+    return ex, secs
+
+
+def hold_sphere(model, name, voxel):
+    """Load <name>.ply and <name>_post.ply; the post-processed vertices'
+    distance to the unit sphere against `voxel` (mean <= 1, 99th
+    percentile <= 3) and their mean colour against MESH_GREY."""
+    from gaussmart_tpu_torch.mesh.meshing import load_mesh_ply
+    out = os.path.join(model, "train", f"ours_{ITERATION}")
+    raw = load_mesh_ply(os.path.join(out, f"{name}.ply"))
+    post = load_mesh_ply(os.path.join(out, f"{name}_post.ply"))
+    err = np.abs(np.linalg.norm(post.vertices, axis=1) - 1.0)
+    colour = float(post.vertex_colors.mean()) if post.vertex_colors is not None else np.nan
+    mean, p99 = float(err.mean()) if len(err) else np.inf, \
+        float(np.percentile(err, 99)) if len(err) else np.inf
+    print(f"[mesh] {name}.ply {len(raw.vertices)} vertices, {len(raw.faces)} faces; "
+          f"{name}_post.ply {len(post.vertices)} vertices, {len(post.faces)} faces; "
+          f"| |v| - 1 | mean {mean:.6f}, 99th percentile {p99:.6f} (voxel {voxel:.6f}: "
+          f"limits 1 and 3 voxels); mean vertex colour {colour:.4f} (splats "
+          f"{MESH_GREY}, limit {COLOUR_TOL})")
+    if not (len(raw.faces) > 0 and len(post.faces) > 0 and np.isfinite(post.vertices).all()
+            and mean <= voxel and p99 <= 3 * voxel and abs(colour - MESH_GREY) <= COLOUR_TOL):
+        fail(f"[mesh] {name} check failed")
+
+
+def tsdf_card_vs_cpu(ex, voxel, sdf_trunc, depth_trunc, device, n=4):
+    """The card's TSDFVolume after the run's first n depth maps against the
+    same update on a CPU copy, every field within TSDF_TOL."""
+    import torch
+    from gaussmart_tpu_torch.mesh.tsdf import TSDFVolume
+    lo, hi = ex._observed_bounds(depth_trunc, sdf_trunc, True)
+    vols = [TSDFVolume(lo, hi, voxel, sdf_trunc, device=d) for d in (device, "cpu")]
+    for cam, rgb, depth in list(zip(ex.viewpoint_stack, ex.rgbmaps, ex.depthmaps))[:n]:
+        for v in vols:
+            d = ex._masked_depth(cam, depth, True).to(v.device)
+            v.integrate(d, torch.clamp(rgb, 0, 1).to(v.device), cam.params(v.device),
+                        depth_trunc)
+    errs = {k: (getattr(vols[0], k).cpu() - getattr(vols[1], k)).abs().max().item()
+            for k in ("tsdf", "weight", "color")}
+    print(f"[mesh] TSDFVolume {vols[0].dims} = {vols[0]._n} voxels after {n} views: card "
+          f"vs CPU copy max|diff| " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+          + f" (limit {TSDF_TOL}); observed voxels {int((vols[0].weight > 0).sum())}")
+    if max(errs.values()) > TSDF_TOL:
+        fail("[mesh] TSDF card vs CPU check failed")
+    return lo, hi
+
+
+def eval_cli(model, root, device):
+    """metrics_cli on the sphere model: without weights (LPIPS null, PSNR
+    finite), then with random VGG weights named by GAUSSMART_LPIPS_WEIGHTS,
+    its LPIPS held against the same scorer on the CPU. Returns the two
+    wall times and the weight file."""
+    import torch
+    from gaussmart_tpu_torch.eval import lpips as lp
+    from gaussmart_tpu_torch.eval import metrics_cli
+    env = os.environ.get(lp.WEIGHT_ENV)
+    try:
+        os.environ[lp.WEIGHT_ENV] = os.path.join(root, "no_such_{net}.npz")
+        t0 = time.perf_counter()
+        res = metrics_cli.main(["-m", model, "--device", str(device)])
+        plain_s = time.perf_counter() - t0
+        weights = os.path.join(root, "lpips_{net}.npz")
+        params = lp.random_params("vgg")
+        np.savez(weights.format(net="vgg"), **params)
+        os.environ[lp.WEIGHT_ENV] = weights
+        t0 = time.perf_counter()
+        res_w = metrics_cli.main(["-m", model, "--device", str(device)])
+        lpips_s = time.perf_counter() - t0
+    finally:
+        if env is None:
+            os.environ.pop(lp.WEIGHT_ENV, None)
+        else:
+            os.environ[lp.WEIGHT_ENV] = env
+    with open(os.path.join(model, "results.json")) as f:
+        written = json.load(f)
+    method = f"ours_{ITERATION}"
+    m, mw = res[model][method], res_w[model][method]
+    test_dir = os.path.join(model, "test", method)
+    renders, gts, _ = metrics_cli.read_images(
+        Path(test_dir) / "renders", Path(test_dir) / "gt")
+    cpu = lp.LPIPS(params, "vgg", device="cpu")
+    ref = float(np.mean([float(cpu(torch.from_numpy(r), torch.from_numpy(g))[0])
+                         for r, g in zip(renders, gts)]))
+    rel = abs(mw["LPIPS"] - ref) / abs(ref)
+    print(f"[eval] metrics_cli on {len(renders)} test views: SSIM {m['SSIM']:.6f}, "
+          f"PSNR {m['PSNR']:.4f}, LPIPS {m['LPIPS']} in {plain_s:.2f} s; with random VGG "
+          f"weights LPIPS {mw['LPIPS']:.8f} (CPU {ref:.8f}, relative diff {rel:.3g}, limit "
+          f"{LPIPS_RTOL}) in {lpips_s:.2f} s; results.json {sorted(written[method])}")
+    if not (m["LPIPS"] is None and np.isfinite(m["PSNR"]) and np.isfinite(m["SSIM"])
+            and len(renders) == 2 and written[method] == mw and rel <= LPIPS_RTOL):
+        fail("[eval] metrics_cli check failed")
+    return plain_s, lpips_s, params, renders[0], gts[0]
+
+
+def mesh_path(root, seed, device):
+    """Phase 7: render_cli's mesh export on the sphere model, bounded at
+    the default --mesh_res and --unbounded at UNBOUNDED_RES, counted and
+    checked; the TSDF on the card against a CPU copy; metrics_cli.
+    Returns what the timings need."""
+    t0 = time.perf_counter()
+    model = write_sphere_model(root, seed, MESH_SPLATS, WIDTH, HEIGHT, MESH_VIEWS)
+    n_test = len(range(0, MESH_VIEWS, 8))
+    n_train = MESH_VIEWS - n_test
+    print(f"[mesh] sphere model: {MESH_SPLATS} surfels on the unit sphere, SH "
+          f"{SH_DEGREE}, grey {MESH_GREY}; {MESH_VIEWS} views at {WIDTH}x{HEIGHT} on a "
+          f"ring of radius {MESH_RING} ({n_train} train, {n_test} test), written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ex, bounded_s = mesh_cli(model, device, 2 * n_train + n_test)
+    depth_trunc = 2.0 * ex.radius
+    voxel = depth_trunc / 1024
+    hold_sphere(model, "fuse", voxel)
+    lo_hi = tsdf_card_vs_cpu(ex, voxel, 5.0 * voxel, depth_trunc, device)
+    _, unbounded_s = mesh_cli(model, device, n_train,
+                              ("--unbounded", "--mesh_res", str(UNBOUNDED_RES),
+                               "--skip_train", "--skip_test"))
+    # the unbounded grid's spacing in world units: 2 R radius / resolution
+    hold_unbounded(model, ex, UNBOUNDED_RES)
+    evals = eval_cli(model, root, device)
+    return ex, (depth_trunc, voxel, lo_hi), (bounded_s, unbounded_s), evals
+
+
+def hold_unbounded(model, ex, res):
+    """fuse_unbounded(_post).ply. The reference's unbounded fusion starts
+    every sample at tsdf 1, weight 1, and updates only samples within its
+    band (5 voxels) behind a surface, so the inside of a closed surface
+    keeps tsdf 1 and the mesh holds a second shell one band inside the
+    first (the JAX package's too): the outer shell is held to the sphere
+    (mean <= 1 voxel, 99th percentile <= 3), the inner one is reported.
+    Its colours start at black with weight 1, so they are reported, not
+    held to the splats' colour."""
+    from gaussmart_tpu_torch.mesh.meshing import load_mesh_ply
+    voxel = 2 * ex.radius / res            # fuse_samples' voxel_size
+    out = os.path.join(model, "train", f"ours_{ITERATION}")
+    raw = load_mesh_ply(os.path.join(out, "fuse_unbounded.ply"))
+    post = load_mesh_ply(os.path.join(out, "fuse_unbounded_post.ply"))
+    r = np.linalg.norm(post.vertices, axis=1)
+    outer = r > 1 - 2.5 * voxel
+    err = np.abs(r[outer] - 1)
+    mean = float(err.mean()) if outer.any() else np.inf
+    p99 = float(np.percentile(err, 99)) if outer.any() else np.inf
+    inner_r = float(np.median(r[~outer])) if (~outer).any() else np.nan
+    print(f"[mesh] fuse_unbounded.ply {len(raw.vertices)} vertices, {len(raw.faces)} faces; "
+          f"_post {len(post.vertices)} vertices, {len(post.faces)} faces; outer shell "
+          f"{int(outer.sum())} vertices: | |v| - 1 | mean {mean:.6f}, 99th percentile "
+          f"{p99:.6f} (voxel {voxel:.6f}: limits 1 and 3 voxels), mean colour "
+          f"{post.vertex_colors[outer].mean():.4f}; inner shell {int((~outer).sum())} "
+          f"vertices at median radius {inner_r:.4f} (1 - 5 voxels = {1 - 5 * voxel:.4f})")
+    if not (len(raw.faces) > 0 and np.isfinite(post.vertices).all()
+            and mean <= voxel and p99 <= 3 * voxel):
+        fail("[mesh] fuse_unbounded check failed")
+
+
+def time_mesh(ex, geo, walls, evals, card, device):
+    """The TSDF stages on the card: integrate per view (CUDA events) on the
+    bounded run's grid and at the voxel cap, with the byte bound; the int8
+    pull, marching, welding and colour lookup (host clock); fuse_samples
+    per 128^3 block; LPIPS(vgg) per pair; the CLIs' wall times."""
+    import torch
+    from gaussmart_tpu_torch.eval import lpips as lp
+    from gaussmart_tpu_torch.mesh import tsdf
+    from gaussmart_tpu_torch.mesh.marching import marching_tetrahedra
+    from gaussmart_tpu_torch.mesh.meshing import TriMesh
+    depth_trunc, voxel, (lo, hi) = geo
+    views = [(ex._masked_depth(c, d, True), torch.clamp(rgb, 0, 1), c.params(device))
+             for c, rgb, d in zip(ex.viewpoint_stack, ex.rgbmaps, ex.depthmaps)]
+    h, w = views[0][0].shape
+    map_bytes = 4 * 4 * h * w          # depth and rgb, float32
+
+    def stages(label, vol):
+        per_view = []
+        for d, rgb, cam in views:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            vol.integrate(d, rgb, cam, depth_trunc)
+            b.record()
+            b.synchronize()
+            per_view.append(a.elapsed_time(b))
+        nbytes = vol._n * 40 + map_bytes
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        t0 = time.perf_counter()
+        q = vol.quantized()
+        pull_s = time.perf_counter() - t0
+        grid = np.where(q == np.int8(-128), np.float32(np.nan),
+                        q.astype(np.float32) / np.float32(127.0))
+        t0 = time.perf_counter()
+        v, f = marching_tetrahedra(grid, 0.0, (vol.voxel_size,) * 3, vol.origin)
+        march_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh = TriMesh(v, f).merge_vertices(digits=6)
+        weld_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vol.sample_colors(mesh.vertices)
+        colour_s = time.perf_counter() - t0
+        print(f"[time] {card}: TSDF {label}: grid {vol.dims} = {vol._n} voxels, "
+              f"{vol._n * 20} bytes of state, voxel {vol.voxel_size:.6f}; integrate per "
+              f"view (CUDA events, {len(per_view)} views) median {np.median(per_view):.4f} "
+              f"ms, min {min(per_view):.4f}, max {max(per_view):.4f}; byte bound "
+              f"{bound:.4f} ms ({nbytes} bytes: 40 per voxel read and written + the maps, "
+              f"at {PEAK_BYTES_PER_S / 1e12} TB/s) = {np.median(per_view) / bound:.1f}x; "
+              f"int8 pull {pull_s:.4f} s, marching {march_s:.4f} s ({len(f)} triangles), "
+              f"welding {weld_s:.4f} s ({len(mesh.vertices)} vertices), colour lookup "
+              f"{colour_s:.4f} s")
+
+    stages("bounded run's grid (--mesh_res 1024)", tsdf.TSDFVolume(
+        lo, hi, voxel, 5 * voxel, device=device))
+    cap_voxel = depth_trunc / CAP_MESH_RES
+    lo_c, hi_c = ex._observed_bounds(depth_trunc, 5 * cap_voxel, True)
+    stages(f"at the voxel cap (--mesh_res {CAP_MESH_RES}, the default "
+           "GAUSSMART_TSDF_MAX_VOXELS)", tsdf.TSDFVolume(lo_c, hi_c, cap_voxel,
+                                                           5 * cap_voxel, device=device))
+    torch.cuda.empty_cache()
+    # fuse_samples on one 128^3 block of the unbounded run's contracted grid
+    depths = torch.stack([d[0] for d in ex.depthmaps])
+    rgbs = torch.stack([torch.clamp(r, 0, 1) for r in ex.rgbmaps])
+    projs = torch.stack([torch.as_tensor(c.full_proj, device=device)
+                         for c in ex.viewpoint_stack])
+    center, radius = np.asarray(ex.center, np.float32), float(ex.radius)
+    axes = np.linspace(0.0, 0.26, 128)
+    pts = np.stack(np.meshgrid(axes, axes, axes, indexing="ij"), -1).reshape(-1, 3)
+    pts = pts.astype(np.float32)
+    vs = 2 * radius / UNBOUNDED_RES
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tsdf.fuse_samples(pts, depths, rgbs, projs, vs, center, radius)
+        host.append((time.perf_counter() - t0) * 1e3)
+    dev_pts = torch.as_tensor(pts, device=device)
+    c_dev = torch.as_tensor(center, device=device)
+    kernel = time_ms(lambda: tsdf._fuse_batch(dev_pts, depths, rgbs, projs, vs, c_dev,
+                                              radius, True), 5)
+    fuse_bytes = len(pts) * (12 + 16) + len(ex.depthmaps) * map_bytes
+    print(f"[time] {card}: fuse_samples per 128^3 block ({len(pts)} samples, "
+          f"{len(ex.depthmaps)} views): {np.median(host):.4f} ms through the function "
+          f"(host clock, its copies included), {kernel:.4f} ms on the device (CUDA "
+          f"events); byte bound {fuse_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms "
+          f"({fuse_bytes} bytes: the samples in, tsdf and colour out, the maps once)")
+    plain_s, lpips_s, params, r, g = evals
+    scorer = lp.LPIPS(params, "vgg", device=device)
+    rt, gt = (torch.as_tensor(x, device=device) for x in (r, g))
+    lp_ms = time_ms(lambda: scorer(rt, gt), FRAMES)
+    bounded_s, unbounded_s = walls
+    print(f"[time] {card}: LPIPS(vgg) per {r.shape[2]}x{r.shape[1]} pair {lp_ms:.4f} ms "
+          f"(CUDA events, median of {FRAMES}); wall: render_cli bounded {bounded_s:.2f} s, "
+          f"--unbounded --mesh_res {UNBOUNDED_RES} {unbounded_s:.2f} s, metrics_cli "
+          f"{plain_s:.2f} s (no weights), {lpips_s:.2f} s (VGG weights)")
+
+
 # --- timings -------------------------------------------------------------------
 
 def time_ms(fn, frames, warmup=2):
@@ -1724,6 +2085,12 @@ def main(argv=None):
     time_mp_launches(record_mp_launches(state_t, cams_t, gts_t, make_mesh(N_SLOTS, dev)),
                      WIDTH, HEIGHT, card)
     time_reduction(io_t, card)
+
+    # 7. the mesh export and evaluation paths, after the timings above so
+    # that their host and device work does not run beside them
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
+        ex_mesh, mesh_geo, mesh_walls, evals = mesh_path(root, args.seed, dev)
+    time_mesh(ex_mesh, mesh_geo, mesh_walls, evals, card, dev)
 
     def listed(ts):
         return "; ".join(f"{k} {ms:.4f} ms, plain {p:.4f} ms"

@@ -1,14 +1,18 @@
-"""Render CLI — ``python -m gaussmart_tpu_torch.render_cli -m <model> --skip_mesh``.
+"""Render / mesh / video CLI — ``python -m gaussmart_tpu_torch.render_cli -m <model>``.
 
 The flags and output layout of gaussmart_tpu/render_cli.py:
-train|test/ours_N/{renders,gt,vis} and, with --render_path, the traj
-videos; plus ``--device {cuda,cpu}`` (default cuda: no CUDA device is an
-error, never a silent CPU run). ``--n_devices D`` renders over D device
-slots (parallel/sharding.py: D cards, or D slots sharing one card or the
-CPU): ``--shard_mode row`` (default) splits the image rows,
-``--shard_mode gaussian`` depth strata of the splats (the seeded tiled
-core K3 unless the pipeline's backend is dense). Mesh export (run unless
---skip_mesh) comes with the TSDF slice and raises before any work.
+train|test/ours_N/{renders,gt,vis}, with --render_path the traj videos,
+and unless --skip_mesh the train views' TSDF mesh, fuse.ply and
+fuse_post.ply (fuse_unbounded*.ply with --unbounded) with the same
+defaults (depth_trunc = 2*radius, voxel = depth_trunc/mesh_res, sdf_trunc
+= 5*voxel) and a diffuse texture (active_sh_degree 0); plus ``--device
+{cuda,cpu}`` (default cuda: no CUDA device is an error, never a silent
+CPU run). ``--n_devices D`` renders over D device slots
+(parallel/sharding.py: D cards, or D slots sharing one card or the CPU):
+``--shard_mode row`` (default) splits the image rows, ``--shard_mode
+gaussian`` depth strata of the splats (the seeded tiled core K3 unless
+the pipeline's backend is dense); the TSDF fusion then runs on slot 0's
+device, where the maps are gathered.
 """
 from __future__ import annotations
 
@@ -21,9 +25,11 @@ import numpy as np
 from gaussmart_tpu_torch.config import (ModelParams, PipelineParams, add_group_args,
                                         extract_group, get_combined_args)
 from gaussmart_tpu_torch.mesh.extract import GaussianExtractor
+from gaussmart_tpu_torch.mesh.meshing import post_process_mesh, save_mesh_ply
 from gaussmart_tpu_torch.runtime import resolve_device, setup
 from gaussmart_tpu_torch.scene import Scene
-from gaussmart_tpu_torch.trajectory import create_video, generate_path
+from gaussmart_tpu_torch.trajectory import (create_video, generate_path,
+                                            require_video_encoder, turbo)
 
 
 def build_parser() -> ArgumentParser:
@@ -55,10 +61,6 @@ def build_parser() -> ArgumentParser:
 
 def main(argv=None):
     args = get_combined_args(build_parser(), argv)
-    if not args.skip_mesh:
-        raise NotImplementedError(
-            "mesh export (TSDF fusion) comes with the TSDF slice of the "
-            "port; pass --skip_mesh")
     setup()
     device = resolve_device(args.device)
     print("Rendering " + args.model_path)
@@ -82,7 +84,8 @@ def main(argv=None):
     it = scene.loaded_iter
     train_dir = os.path.join(args.model_path, "train", f"ours_{it}")
     test_dir = os.path.join(args.model_path, "test", f"ours_{it}")
-    extractor = GaussianExtractor(scene.gaussians, bg_color=bg,
+    state = scene.gaussians
+    extractor = GaussianExtractor(state, bg_color=bg,
                                   depth_ratio=pipe.depth_ratio,
                                   backend=backend, mesh=mesh)
 
@@ -97,6 +100,8 @@ def main(argv=None):
         extractor.export_image(test_dir)
 
     if args.render_path:
+        # the encoder is checked before any frame is rendered
+        require_video_encoder()
         print("render videos ...")
         traj_dir = os.path.join(args.model_path, "traj", f"ours_{it}")
         cam_traj = generate_path(scene.get_train_cameras(), n_frames=240)
@@ -106,23 +111,46 @@ def main(argv=None):
                      os.path.join(traj_dir, "render_traj.mp4"))
         # depth: log curve with [3, 97] percentile limits from frame 0,
         # turbo-coloured; normals map [-1,1] -> [0,1]
-        import matplotlib
         d0 = extractor.depthmaps[0][0].cpu().numpy()
         pos = d0[d0 > 0]
         lims = np.percentile(pos if pos.size else np.ones(1), [3, 97])
         lo, hi = np.log(np.maximum(lims, 1e-6))
-        turbo = matplotlib.colormaps["turbo"]
 
         def depth_frame(d):
             x = np.log(np.maximum(d[0].cpu().numpy(), 1e-6))
             x = np.clip((x - min(lo, hi)) / max(abs(hi - lo), 1e-9), 0, 1)
-            return turbo(x)[..., :3]
+            return turbo(x)
 
         create_video([depth_frame(d) for d in extractor.depthmaps],
                      os.path.join(traj_dir, "depth_traj.mp4"))
         create_video([n.permute(1, 2, 0).cpu().numpy() * 0.5 + 0.5
                       for n in extractor.normalmaps],
                      os.path.join(traj_dir, "normal_traj.mp4"))
+
+    if not args.skip_mesh:
+        print("export mesh ...")
+        os.makedirs(train_dir, exist_ok=True)
+        # diffuse-only texture (reference render.py:90)
+        extractor.state = state.replace(active_sh_degree=0)
+        extractor.reconstruction(scene.get_train_cameras())
+        if args.unbounded:
+            name = "fuse_unbounded.ply"
+            mesh = extractor.extract_mesh_unbounded(resolution=args.mesh_res)
+        else:
+            name = "fuse.ply"
+            depth_trunc = (extractor.radius * 2.0 if args.depth_trunc < 0
+                           else args.depth_trunc)
+            voxel_size = (depth_trunc / args.mesh_res if args.voxel_size < 0
+                          else args.voxel_size)
+            sdf_trunc = 5.0 * voxel_size if args.sdf_trunc < 0 else args.sdf_trunc
+            mesh = extractor.extract_mesh_bounded(
+                voxel_size=voxel_size, sdf_trunc=sdf_trunc, depth_trunc=depth_trunc)
+        save_mesh_ply(os.path.join(train_dir, name), mesh)
+        print(f"mesh saved at {os.path.join(train_dir, name)}")
+        mesh_post = post_process_mesh(mesh, cluster_to_keep=args.num_cluster)
+        post_path = os.path.join(train_dir, name.replace(".ply", "_post.ply"))
+        save_mesh_ply(post_path, mesh_post)
+        print(f"mesh post processed saved at {post_path}")
     return extractor
 
 

@@ -42,6 +42,7 @@ import torch
 from gaussmart_tpu_torch.config import (ModelParams, OptimizationParams,
                                         PipelineParams, add_group_args,
                                         extract_group, save_cfg)
+from gaussmart_tpu_torch.eval.lpips import load_lpips
 from gaussmart_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from gaussmart_tpu_torch.logging_utils import TensorBoardLogger, profile_trace
 from gaussmart_tpu_torch.models.gaussians import grow_capacity
@@ -283,10 +284,11 @@ def _grow(state, adam: AdamState, dropped: int = 0, multiple: int = 1):
 def report_eval(scene: Scene, state, pipe, dataset, iteration, tb=None,
                 device="cuda", mesh=None):
     """In-loop eval of the test cameras and 5 train cameras: mean L1, PSNR
-    and SSIM of the clipped renders, printed and written to
-    eval_<iteration>.json. With `mesh`, `state` is the Gaussian-sharded
-    training state's per-slot chunks, rendered through the sharded
-    backend."""
+    and SSIM of the clipped renders, and LPIPS(alex) when local weights
+    exist (eval/lpips.py), printed and written to eval_<iteration>.json.
+    With `mesh`, `state` is the Gaussian-sharded training state's per-slot
+    chunks, rendered through the sharded backend."""
+    lpips = load_lpips("alex", device)
     backend = pipe.backend if mesh is None else sharded_render_backend(pipe.backend)
     configs = [("test", scene.get_test_cameras())]
     train_cams = scene.get_train_cameras()
@@ -300,6 +302,8 @@ def report_eval(scene: Scene, state, pipe, dataset, iteration, tb=None,
         if not cams:
             continue
         tot = {"l1": 0.0, "psnr": 0.0, "ssim": 0.0}
+        if lpips is not None:
+            tot["lpips"] = 0.0
         for vi, cam in enumerate(cams):
             pkg = render(cam.params(device), state, bg, depth_ratio=pipe.depth_ratio,
                          backend=backend, mesh=mesh)
@@ -317,6 +321,8 @@ def report_eval(scene: Scene, state, pipe, dataset, iteration, tb=None,
             tot["l1"] += float(l1_loss(img, gt))
             tot["psnr"] += float(psnr_fn(img[None], gt[None])[0, 0])
             tot["ssim"] += float(ssim_fn(img, gt))
+            if lpips is not None:
+                tot["lpips"] += float(lpips(img, gt)[0])
         results[name] = {k: v / len(cams) for k, v in tot.items()}
         if tb is not None:
             for k, v in results[name].items():

@@ -1,7 +1,7 @@
 """The serving slice end to end: a seeded trained-model directory rendered by
 the JAX GaussianExtractor (dense backend) and by the port's render_cli on
 the CPU, compared image by image; the port imports neither jax nor
-gaussmart_tpu; the CLI's refusals."""
+gaussmart_tpu (nor PIL, cv2 or matplotlib); the CLI's refusals."""
 import json
 import os
 import subprocess
@@ -125,9 +125,11 @@ def test_cli_renders_match_jax_extractor(tmp_path):
 
 def test_port_imports_no_jax(tmp_path):
     """Importing every module of the port (gaussmart_tpu_torch.parallel
-    too) and chip_smoke.py, and running the render CLI and the train CLI,
-    each also over 2 device slots (--shard_mode gaussian; dp and mp),
-    leaves neither jax nor gaussmart_tpu in sys.modules."""
+    too) and chip_smoke.py, and running the render CLI (with its mesh
+    export), the metrics CLI and the train CLI, each also over 2 device
+    slots (--shard_mode gaussian; dp and mp), leaves neither jax nor
+    gaussmart_tpu in sys.modules, nor PIL, cv2 or matplotlib, which the
+    card's machine lacks."""
     model, cfg = _model_dir(str(tmp_path), n=40)
     src, out = cfg["source_path"], str(tmp_path / "trained")
     code = f"""
@@ -136,16 +138,19 @@ import gaussmart_tpu_torch, gaussmart_tpu_torch.parallel, chip_smoke
 for m in pkgutil.walk_packages(gaussmart_tpu_torch.__path__, "gaussmart_tpu_torch."):
     importlib.import_module(m.name)
 from gaussmart_tpu_torch import render_cli, train
-render_cli.main(["-m", {model!r}, "--skip_mesh", "--device", "cpu", "--skip_test"])
+render_cli.main(["-m", {model!r}, "--device", "cpu", "--skip_test", "--mesh_res", "64"])
 render_cli.main(["-m", {model!r}, "--skip_mesh", "--device", "cpu", "--skip_train",
                  "--n_devices", "2", "--shard_mode", "gaussian"])
+from gaussmart_tpu_torch.eval import metrics_cli
+metrics_cli.main(["-m", {model!r}, "--device", "cpu"])
 args = ["-s", {src!r}, "--sh_degree", "1", "--iterations", "3", "--test_iterations", "3",
         "--device", "cpu", "--no_tensorboard", "--quiet", "--capacity", "256",
         "--dino_mode", "off"]
 train.main(args + ["-m", {out!r}])
 train.main(args + ["-m", {out + "_dp"!r}, "--n_devices", "2"])
 train.main(args + ["-m", {out + "_mp"!r}, "--n_devices", "2", "--parallel_mode", "mp"])
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gaussmart_tpu"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gaussmart_tpu",
+                                                           "PIL", "cv2", "matplotlib"))
 assert not bad, bad
 print("CLEAN")
 """
@@ -158,6 +163,8 @@ print("CLEAN")
                                        "00002.png"))
     assert os.path.exists(os.path.join(model, "test", f"ours_{ITER}", "renders",
                                        "00000.png"))
+    assert os.path.exists(os.path.join(model, "train", f"ours_{ITER}", "fuse_post.ply"))
+    assert os.path.exists(os.path.join(model, "results.json"))
     for o in (out, out + "_dp", out + "_mp"):
         assert os.path.exists(os.path.join(o, "point_cloud", "iteration_3", "point_cloud.ply"))
         assert os.path.exists(os.path.join(o, "eval_3.json"))
@@ -165,8 +172,13 @@ print("CLEAN")
 
 def test_cli_refuses_what_this_slice_does_not_serve(tmp_path, monkeypatch):
     model, cfg = _model_dir(str(tmp_path), n=10)
-    with pytest.raises(NotImplementedError, match="TSDF"):
-        render_cli.main(["-m", model, "--device", "cpu"])
+    # --render_path without OpenCV, the port's one video encoder: refused
+    # before any frame is rendered
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(RuntimeError, match="no video encoder"):
+        render_cli.main(["-m", model, "--device", "cpu", "--skip_mesh", "--skip_train",
+                         "--skip_test", "--render_path"])
+    monkeypatch.delitem(sys.modules, "cv2")
     # a new model starts from the scene's point cloud as in the JAX package:
     # the same initial params and aux, camera order and extent, and copies
     jdir, tdir = str(tmp_path / "jax_new"), str(tmp_path / "port_new")
