@@ -70,7 +70,25 @@ Phases, each printing its own lines; any failure exits non-zero:
      view (on the bounded run's grid and at the 200M-voxel cap, with its
      byte bound), the int8 pull, marching, welding and colour lookup,
      fuse_samples per 128^3 block, LPIPS(vgg) per pair and the CLIs' wall
-     times.
+     times;
+  8. the DINO term and the viewer: a DINOv3 ViT-B/16 npz at the
+     checkpoint's published widths (12 layers, width 768, 12 heads, MLP
+     3072, 4 registers, RoPE theta 100, input 224; random weights from
+     --seed, LayerScale drawn in [0.5, 1.5]) loaded by create() through
+     GAUSSMART_DINO_WEIGHTS: its tokens of a 776x584 render and the fixed
+     term's image gradient on the card against a CPU copy; the heatmap
+     CLI (semantics.visualize) on that render; two backwards
+     of the training step with the term past its gate bit-equal; the
+     phase-5 scene trained DINO_ITERS iterations with the term gated at
+     DINO_GATE (dino_loss 0 up to the gate, non-zero after), then
+     DINO_SLOT_ITERS iterations Gaussian-sharded and data-parallel with the
+     term; viewer.serve on the phase-4 model answering a loopback client
+     (VIEWER_ROUNDS requests of each of the six render items at 776x584,
+     each frame held against an in-memory render, one K1 per frame), and
+     train.main --gui serving a client connected beforehand; then the
+     training step with and without the term, the tower's forward and its
+     forward plus backward against their float32 FLOP bounds, and the
+     viewer's round trip per render item.
 N_SLOTS slots on one card measure the cost of the two-pass fold, not
 scaling across cards.
 Each path's kernel launch counts are set to 0 just before it runs and read
@@ -158,6 +176,15 @@ CAP_MESH_RES = 4096       # a bounded grid past the 200M-voxel cap, for its time
 TSDF_TOL = 1e-5           # the card's TSDF grid vs a CPU copy, absolute
 COLOUR_TOL = 0.02         # mean vertex colour vs the splats' colour
 LPIPS_RTOL = 1e-4         # metrics_cli's LPIPS on the card vs the CPU, relative
+# phase 8: the DINO tower at the published DINOv3 ViT-B/16 widths, its term
+# (train.py's --lambda_dino default) gated at DINO_GATE, and the viewer
+DINO_DEPTH, DINO_DIM, DINO_HEADS, DINO_SIZE, DINO_REGISTERS = 12, 768, 12, 224, 4
+DINO_LAMBDA = 0.05
+DINO_GATE, DINO_ITERS, DINO_SLOT_ITERS = 10, 20, 3
+DINO_TOKEN_TOL = 1e-4     # the card's tokens (and heatmap) vs the CPU copy's, absolute
+DINO_GRAD_TOL = 1e-4      # the term's image gradient, card vs CPU, of its max |value|
+VIEWER_ROUNDS = 5         # viewer requests of each render item (the first warms up)
+GUI_ITERS, GUI_FRAMES = 5, 3   # train --gui: iterations, frames asked on the way
 
 
 def card_line() -> str:
@@ -727,7 +754,7 @@ def backward_determinism(state, cams, gts, device):
     adam = init_adam(state.params)
     batched = BatchedCameras.stack([cams[i % len(cams)] for i in range(N_SLOTS)])
     targets = torch.stack([gts[i % len(gts)] for i in range(N_SLOTS)])
-    steps = {
+    hold_determinism({
         "training step": (make_train_step(opt, backend="auto", **kw),
                           (state.params, adam, state.aux, cams[1], gts[1], 1)),
         f"Gaussian-sharded step over {N_SLOTS} slots": (
@@ -738,7 +765,14 @@ def backward_determinism(state, cams, gts, device):
             (replicate(state.params, mesh), replicate(adam, mesh),
              replicate(state.aux, mesh), shard_batch(batched, mesh),
              shard_batch(targets, mesh), 1)),
-    }
+    })
+
+
+def hold_determinism(steps):
+    """{label: (step, args)}: two backwards of each step from the same
+    arguments, their gradients held bit-equal on the default route and
+    compared, printed only, under scatter."""
+    import torch
     for label, (step, args) in steps.items():
         for mode in ("compact", "scatter"):
             with grad_reduce_route(mode):
@@ -880,10 +914,11 @@ def row_sharded_render(device):
         fail("[serve] row-sharded check failed")
 
 
-def train_cli(src, out, iters, device, losses, extra=()):
+def train_cli(src, out, iters, device, losses, extra=(), dinos=None):
     """gaussmart_tpu_torch.train.main on `src`, counted, with every step's
-    total loss appended to `losses` (the CLI logs only every 10th), on one
-    device or over slots (its step makers are wrapped)."""
+    total loss appended to `losses` (the CLI logs only every 10th), and its
+    DINO term to `dinos` when given, on one device or over slots (its step
+    makers are wrapped)."""
     from gaussmart_tpu_torch import train
     makers = {name: getattr(train, name) for name in
               ("make_train_step", "make_dp_train_step", "make_mp_train_step")}
@@ -895,6 +930,8 @@ def train_cli(src, out, iters, device, losses, extra=()):
             def run(*args):
                 out_ = step(*args)
                 losses.append(float(out_[3].total))
+                if dinos is not None:
+                    dinos.append(float(out_[3].dino))
                 return out_
             return run
         return wrapped
@@ -1052,6 +1089,372 @@ def train_slots_path(root, device, single_losses):
             and np.all(np.isfinite(dp_losses))):
         fail("[train] data-parallel check failed")
     return counts
+
+
+# --- the DINO term and the viewer (phase 8) ---------------------------------
+
+@contextlib.contextmanager
+def dino_weights(path):
+    """GAUSSMART_DINO_WEIGHTS=`path` inside the block (create() reads it)."""
+    from gaussmart_tpu_torch.semantics.dino import WEIGHT_ENV
+    os.environ[WEIGHT_ENV] = path
+    try:
+        yield
+    finally:
+        del os.environ[WEIGHT_ENV]
+
+
+def write_dino_weights(root, seed):
+    """A DINOv3 ViT-B/16 npz in the layout create() reads, at the published
+    widths of facebook/dinov3-vitb16-pretrain-lvd1689m: random_params from
+    the seed, LayerScale drawn in [0.5, 1.5] so that its path counts."""
+    from gaussmart_tpu_torch.semantics.dino import random_params
+    t0 = time.perf_counter()
+    params = random_params(depth=DINO_DEPTH, dim=DINO_DIM, patch=16, seed=seed,
+                           n_registers=DINO_REGISTERS)
+    rng = np.random.default_rng(seed + 1)
+    for i in range(DINO_DEPTH):
+        for j in (1, 2):
+            params[f"blocks.{i}.ls{j}"] = rng.uniform(0.5, 1.5, DINO_DIM).astype(np.float32)
+    params.update(meta_patch=np.int32(16), meta_n_heads=np.int32(DINO_HEADS),
+                  meta_image_size=np.int32(DINO_SIZE))
+    path = os.path.join(root, "dino_vitb16.npz")
+    np.savez(path, **params)
+    n = sum(v.size for k, v in params.items() if not k.startswith("meta_"))
+    print(f"[dino] DINOv3 ViT-B/16 weights: {DINO_DEPTH} layers, width {DINO_DIM}, "
+          f"{DINO_HEADS} heads, MLP {4 * DINO_DIM}, {DINO_REGISTERS} registers, RoPE "
+          f"theta 100, input {DINO_SIZE}; {n} random parameters from seed {seed}, "
+          f"written in {time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def tower_flops(enc, height, width):
+    """(resize, dense, attention) float32 multiply-add FLOPs of one forward
+    of `enc` on a [3, height, width] image, counted from the widths: the
+    two resize products, the patch embedding and each layer's qkv,
+    projection and MLP products, and its two attention products. The
+    elementwise work (norms, GELU, softmax) is left out."""
+    S, p, L = enc.image_size, enc.patch, enc.n_layers
+    D = enc.params["cls_token"].shape[0]
+    N = enc.n_prefix + (S // p) ** 2
+    resize = 2 * 3 * height * width * S + 2 * 3 * S * height * S
+    dense = 2 * (S // p) ** 2 * 3 * p * p * D + L * (2 * N * D * 3 * D + 2 * N * D * D
+                                                      + 2 * 2 * N * D * 4 * D)
+    return resize, dense, L * 2 * 2 * N * N * D
+
+
+def fixed_term_flops(enc, height, width):
+    """The fixed DINO term: the render's and the target's forwards, and the
+    backward to the render (no weight gradients: each product's input
+    gradient costs its forward again, attention's two products twice)."""
+    resize, dense, attention = tower_flops(enc, height, width)
+    return 2 * (resize + dense + attention) + resize + dense + 2 * attention
+
+
+def dino_tower(path, image, gt, device):
+    """create() through GAUSSMART_DINO_WEIGHTS, on the card and a CPU copy:
+    every token of a 776x584 render, and the fixed term with its gradient
+    with respect to the render (target: another render)."""
+    import copy
+    import torch
+    from gaussmart_tpu_torch.losses import dino_term
+    from gaussmart_tpu_torch.semantics.dino import DinoEncoder
+    with dino_weights(path):
+        cpu = DinoEncoder.create()
+    card = copy.deepcopy(cpu).to(device)
+    with torch.no_grad():
+        tokens = card.tokens(image)
+        ref = cpu.tokens(image.cpu())
+    tok_err = (tokens.cpu() - ref).abs().max().item()
+
+    def term_and_grad(enc, img, target):
+        x = img.detach().clone().requires_grad_()
+        term = dino_term(x, target, enc, DINO_LAMBDA, mode="fixed")
+        term.backward()
+        return term.item(), x.grad.cpu()
+    term, grad = term_and_grad(card, image, gt)
+    term_ref, grad_ref = term_and_grad(cpu, image.cpu(), gt.cpu())
+    scale = grad_ref.abs().max().item()
+    grad_err = (grad - grad_ref).abs().max().item() / scale
+    shape = (cpu.n_prefix + (DINO_SIZE // 16) ** 2, DINO_DIM)
+    print(f"[dino] create() on {device} and a CPU copy: tokens {tuple(tokens.shape)} of a "
+          f"{image.shape[2]}x{image.shape[1]} render, max|card - CPU| {tok_err:.3g} (limit "
+          f"{DINO_TOKEN_TOL}, max |token| {ref.abs().max().item():.4f}); fixed term "
+          f"(lambda {DINO_LAMBDA}) {term:.8f} on the card, {term_ref:.8f} on the CPU; its "
+          f"gradient with respect to the render: max|card - CPU| / max|CPU| {grad_err:.3g} "
+          f"(limit {DINO_GRAD_TOL}; max|CPU| {scale:.4g})")
+    if not (tuple(tokens.shape) == shape == tuple(ref.shape) and tok_err <= DINO_TOKEN_TOL
+            and grad_err <= DINO_GRAD_TOL and scale > 0 and np.isfinite(term)
+            and abs(term - term_ref) <= 1e-4 * max(abs(term_ref), 1e-12)):
+        fail("[dino] the card's tower disagrees with the CPU copy")
+    return card, cpu
+
+
+def heatmap_cli(root, path, image, card, cpu, device):
+    """python -m gaussmart_tpu_torch.semantics.visualize on a 776x584 render
+    saved as PNG, with the phase-8 weights, on the card: an RGB PNG of the
+    render's size, the overlay of the card's heatmap; that heatmap against
+    the CPU copy's."""
+    from gaussmart_tpu_torch.io.images import read_png, write_png
+    from gaussmart_tpu_torch.semantics import visualize
+    src, out = os.path.join(root, "render.png"), os.path.join(root, "heatmap.png")
+    write_png(src, (image.clamp(0, 1).permute(1, 2, 0).cpu().numpy() * 255).astype(np.uint8))
+    t0 = time.perf_counter()
+    with dino_weights(path):
+        visualize.main(["-i", src, "-o", out, "--device", str(device)])
+    secs = time.perf_counter() - t0
+    rgb = visualize.read_rgb(src)
+    heat = visualize.cls_patch_heatmap(card, rgb.transpose(2, 0, 1))
+    err = float(np.abs(heat - visualize.cls_patch_heatmap(cpu, rgb.transpose(2, 0, 1))).max())
+    want = np.clip(visualize.overlay_heatmap(rgb, heat) * 255, 0, 255).astype(np.uint8)
+    got = read_png(out)
+    same = got.shape == want.shape and bool((got == want).all())
+    print(f"[dino] semantics.visualize CLI on the card, {rgb.shape[1]}x{rgb.shape[0]} render "
+          f"in {secs:.2f} s: wrote {got.shape} {got.dtype}, equal to the overlay of the "
+          f"card's heatmap {same}; heatmap {heat.shape} card vs CPU max|diff| {err:.3g} "
+          f"(limit {DINO_TOKEN_TOL})")
+    if not (same and heat.shape == (DINO_SIZE // 16,) * 2 and err <= DINO_TOKEN_TOL):
+        fail("[dino] heatmap CLI check failed")
+
+
+def dino_training(root, path, device):
+    """The training paths with the term on: train.main on the phase-5 scene
+    for DINO_ITERS iterations gated at DINO_GATE, then DINO_SLOT_ITERS
+    Gaussian-sharded and DINO_SLOT_ITERS camera data-parallel iterations
+    with the term from the first (K1/K2/K5 and K3/K4 as in phase 5)."""
+    src = os.path.join(root, "train_scene")
+    out = os.path.join(root, "trained_dino")
+    losses, dinos = [], []
+    dino = ["--dino_mode", "fixed", "--test_iterations", "0"]
+    with dino_weights(path):
+        _, _, counts, secs = train_cli(src, out, DINO_ITERS, device, losses,
+                                       dino + ["--dino_start_iter", str(DINO_GATE)], dinos)
+    with open(os.path.join(out, "dino_loss_log.csv")) as f:
+        column = {int(r["iteration"]): float(r["dino_loss"]) for r in csv.DictReader(f)}
+    print(f"[dino] train.main --dino_mode fixed --dino_start_iter {DINO_GATE}, {DINO_ITERS} "
+          f"iterations in {secs:.2f} s: launches {counts}; dino term per step "
+          f"{[round(d, 8) for d in dinos]}; dino_loss_log.csv {column}")
+    gated, on = dinos[:DINO_GATE], dinos[DINO_GATE:]
+    if not (only(counts, raster_fwd=DINO_ITERS, raster_bwd=DINO_ITERS, segsum=DINO_ITERS)
+            and len(dinos) == DINO_ITERS and all(d == 0.0 for d in gated)
+            and all(np.isfinite(d) and d > 0 for d in on) and np.all(np.isfinite(losses))
+            and column.get(DINO_GATE) == 0.0 and column.get(DINO_ITERS, 0.0) > 0):
+        fail("[dino] the gated term check failed")
+
+    slots = ["--n_devices", str(N_SLOTS), "--dino_start_iter", "0"] + dino
+    per_frame = 2 * N_SLOTS
+    for mode, want in (("mp", dict(raster_fwd_seeded=per_frame * DINO_SLOT_ITERS,
+                                   raster_bwd_seeded=per_frame * DINO_SLOT_ITERS,
+                                   segsum=per_frame * DINO_SLOT_ITERS)),
+                       ("dp", dict(raster_fwd=N_SLOTS * DINO_SLOT_ITERS,
+                                   raster_bwd=N_SLOTS * DINO_SLOT_ITERS,
+                                   segsum=N_SLOTS * DINO_SLOT_ITERS))):
+        losses, dinos = [], []
+        with dino_weights(path):
+            _, _, counts, secs = train_cli(
+                src, os.path.join(root, f"trained_dino_{mode}"), DINO_SLOT_ITERS, device,
+                losses, slots + ["--parallel_mode", mode], dinos)
+        print(f"[dino] train.main --n_devices {N_SLOTS} --parallel_mode {mode} with the "
+              f"term, {DINO_SLOT_ITERS} iterations in {secs:.2f} s: launches {counts}; "
+              f"dino term per step {dinos}; losses {losses}")
+        if not (only(counts, **want) and len(dinos) == DINO_SLOT_ITERS
+                and all(np.isfinite(d) and d > 0 for d in dinos)
+                and np.all(np.isfinite(losses))):
+            fail(f"[dino] the {mode} check failed")
+
+
+@contextlib.contextmanager
+def connected_viewer(module, requests):
+    """module.NetworkGUI (train's or viewer.serve's) replaced by one that,
+    once listening, starts a ViewerClient for `requests` and waits for its
+    connection (a deadline, not a race); yields the list that receives the
+    client, joined at the end."""
+    from gaussmart_tpu_torch.viewer.client import ViewerClient
+    original = module.NetworkGUI
+    clients = []
+
+    class Connected(original):
+        def init(self, host, port):
+            super().init(host, port)
+            client = ViewerClient(self.listener.getsockname()[1], requests)
+            clients.append(client)
+            client.start()
+            if not client.connected.wait(60) or client.error is not None:
+                fail(f"[viewer] the client did not connect: {client.error}")
+
+    module.NetworkGUI = Connected
+    try:
+        yield clients
+    finally:
+        module.NetworkGUI = original
+        for client in clients:
+            client.join(120)
+            if client.is_alive():
+                fail("[viewer] the client did not finish")
+
+
+def viewer_path(model, state, cam, device):
+    """python -m gaussmart_tpu_torch.viewer.serve on the phase-4 model
+    directory, counted, answering VIEWER_ROUNDS requests of each render
+    item at the model's first camera (776x584); each frame against
+    image_to_bytes(render_net_image(...)) of an in-memory render of the
+    same splats; K1 once per frame. Returns the round trip per frame of
+    each item in ms (median over the rounds after the first)."""
+    import torch
+    from gaussmart_tpu_torch.cameras import MiniCam
+    from gaussmart_tpu_torch.config import ModelParams
+    from gaussmart_tpu_torch.render.api import render
+    from gaussmart_tpu_torch.viewer import serve
+    from gaussmart_tpu_torch.viewer.client import camera_request
+    from gaussmart_tpu_torch.viewer.protocol import image_to_bytes, render_net_image
+    items = ModelParams().render_items
+    requests = [camera_request(cam, m) for _ in range(VIEWER_ROUNDS)
+                for m in range(len(items))]
+    zero_counts()
+    t0 = time.perf_counter()
+    with connected_viewer(serve, requests) as clients:
+        serve.main(["-m", model, "--port", "0", "--device", str(device),
+                    "--max_frames", str(len(requests))])
+    counts = read_counts()
+    secs = time.perf_counter() - t0
+    client = clients[0]
+    mini = MiniCam(cam.width, cam.height, cam.fovy, cam.fovx, cam.znear, cam.zfar,
+                   cam.world_view, cam.full_proj)
+    errs = {}
+    with torch.inference_mode():
+        pkg = render(mini.params(device), state, torch.zeros(3, device=device))
+        for m, item in enumerate(items):
+            ref = np.frombuffer(image_to_bytes(render_net_image(pkg, items, m, mini)),
+                                np.uint8).astype(np.int16)
+            errs[item] = max(int(np.abs(np.frombuffer(f[0], np.uint8) - ref).max())
+                             for f in client.frames[m::len(items)])
+    ms = {item: float(np.median(client.seconds[len(items) + m::len(items)])) * 1e3
+          for m, item in enumerate(items)}
+    print(f"[viewer] viewer.serve on the {int(state.n_active)}-splat model, "
+          f"{len(client.frames)} requests ({VIEWER_ROUNDS} of each of {items}) at "
+          f"{cam.width}x{cam.height} in {secs:.2f} s: launches {counts}; frames vs "
+          f"image_to_bytes(render_net_image(...)) of an in-memory render max|diff| (8-bit "
+          f"levels) {errs} (limit {PNG_TOL}); metrics {client.frames[0][2]}")
+    if not (client.error is None and client.items == items
+            and len(client.frames) == len(requests)
+            and all(len(f[0]) == cam.width * cam.height * 3 for f in client.frames)
+            and only(counts, raster_fwd=len(requests))
+            and max(errs.values()) <= PNG_TOL):
+        fail("[viewer] check failed")
+    return ms
+
+
+def gui_training(root, device):
+    """train.main --gui on the phase-5 scene, counted, with a client
+    connected before the first iteration that asks for GUI_FRAMES frames
+    (RGB, Depth, Normal at the scene's first camera), each time asking to
+    train on, then leaves: one K1 per frame beside the steps'."""
+    from gaussmart_tpu_torch import train
+    from gaussmart_tpu_torch.viewer.client import camera_request
+    cam = bench_cameras(TRAIN_VIEWS, WIDTH, HEIGHT)[0]
+    requests = [camera_request(cam, m, train=True) for m in (0, 3, 2)][:GUI_FRAMES]
+    losses = []
+    with connected_viewer(train, requests) as clients:
+        _, _, counts, secs = train_cli(
+            os.path.join(root, "train_scene"), os.path.join(root, "trained_gui"),
+            GUI_ITERS, device, losses, ["--gui", "--port", "0", "--test_iterations", "0"])
+    client = clients[0]
+    print(f"[viewer] train.main --gui, {GUI_ITERS} iterations in {secs:.2f} s: launches "
+          f"{counts}; the client received {len(client.frames)} frames of "
+          f"{[len(f[0]) for f in client.frames]} bytes, round trips "
+          f"{[round(t * 1e3, 2) for t in client.seconds]} ms; metrics "
+          f"{[f[2] for f in client.frames]}")
+    if not (client.error is None and len(client.frames) == GUI_FRAMES
+            and all(len(f[0]) == WIDTH * HEIGHT * 3 and len(set(f[0])) > 1
+                    for f in client.frames)
+            and only(counts, raster_fwd=GUI_ITERS + GUI_FRAMES, raster_bwd=GUI_ITERS,
+                     segsum=GUI_ITERS)
+            and len(losses) == GUI_ITERS and np.all(np.isfinite(losses))):
+        fail("[viewer] train --gui check failed")
+
+
+def dino_determinism(path, state, cams, gts, device):
+    """[determinism] with the term: two backwards of the training step past
+    the gate (train._build_dino_fn's term, the phase-8 tower)."""
+    from gaussmart_tpu_torch import train
+    from gaussmart_tpu_torch.config import OptimizationParams
+    from gaussmart_tpu_torch.optim import init_adam
+    from gaussmart_tpu_torch.train_lib import make_train_step
+    with dino_weights(path):
+        dino_fn = train._build_dino_fn(DINO_LAMBDA, DINO_GATE, "fixed", device)
+    step = make_train_step(OptimizationParams(), backend="auto", dino_fn=dino_fn,
+                           sh_degree=SH_DEGREE, white_background=False, spatial_lr_scale=1.0)
+    hold_determinism({"training step with the DINO term past its gate": (
+        step, (state.params, init_adam(state.params), state.aux, cams[1], gts[1],
+               DINO_GATE + 1))})
+    return dino_fn
+
+
+def dino_viewer_path(root, seed, model, cams, state_s, state_t, cams_t, gts_t, device):
+    """Phase 8's checks, on the phase-4 model directory and the phase-5
+    training scene (both under `root`): the tower on the card against a
+    CPU copy, the heatmap CLI, [determinism] with the term, training with
+    the term in the three steps, the viewer CLI and train --gui. Returns what
+    time_dino_viewer times: (the card's encoder, two renders of the model,
+    the term's dino_fn, the viewer's round trips)."""
+    import torch
+    from gaussmart_tpu_torch.render.api import render
+    path = write_dino_weights(root, seed)
+    with torch.no_grad():
+        views = [render(cams[i].params(device), state_s,
+                        torch.zeros(3, device=device))["render"] for i in (0, 1)]
+    encoder, cpu_encoder = dino_tower(path, views[0], views[1], device)
+    heatmap_cli(root, path, views[0], encoder, cpu_encoder, device)
+    dino_fn = dino_determinism(path, state_t, cams_t, gts_t, device)
+    dino_training(root, path, device)
+    viewer_ms = viewer_path(model, state_s, cams[0], device)
+    gui_training(root, device)
+    return encoder, views, dino_fn, viewer_ms
+
+
+def time_dino_viewer(enc, views, dino_fn, viewer_ms, state, cams, gts, card):
+    """The tower's forward and the fixed term's forwards plus backward on a
+    776x584 render (target: a second render; CUDA events, median of
+    FRAMES; device time and launches from torch.profiler) against their
+    float32 FLOP bounds; the training step without and with the term
+    (past its gate), in turns; the viewer's round trips."""
+    import torch
+    from gaussmart_tpu_torch.losses import dino_term
+    image, gt = views
+    x = image.detach().clone().requires_grad_()
+
+    def forward():
+        with torch.no_grad():
+            enc.tokens(image)
+
+    def fixed_term():
+        dino_term(x, gt, enc, DINO_LAMBDA, mode="fixed").backward()
+
+    height, width = image.shape[1:]
+    for label, fn, flops in (
+            ("tower forward", forward, sum(tower_flops(enc, height, width))),
+            ("fixed term: two forwards + the backward to the render", fixed_term,
+             fixed_term_flops(enc, height, width))):
+        ms = time_ms(fn, FRAMES)
+        kernel_ms, top = device_kernel_ms(fn, FRAMES)
+        launches = sum(c for _, _, c in top)
+        bound = flops / PEAK_F32_FLOPS * 1e3
+        print(f"[time] {card}: DINO ViT-B/16 {label}, {width}x{height} -> {DINO_SIZE}, "
+              f"median of {FRAMES}: {ms:.4f} ms; {flops / 1e9:.3f} GFLOP of float32 "
+              f"products -> bound {bound:.4f} ms (operations, {PEAK_F32_FLOPS / 1e12:g} "
+              f"TFLOP/s) = {bound / ms:.3f} of it; {launches:g} launches per call")
+        print_device(f"DINO {label}", kernel_ms, top, ms)
+    ips = {}
+    for what, fn in (("without the term", None), ("with the DINO term", dino_fn),
+                     ("with the DINO term", dino_fn), ("without the term", None)):
+        ips.setdefault(what, []).append(time_training(state, cams, gts, card, dino_fn=fn,
+                                                      first_iter=DINO_GATE + 1))
+    print(f"[time] {card}: training step past the DINO gate, in turns (off, on, on, off): "
+          + "; ".join(f"{k} {', '.join(f'{1e3 / v:.4f}' for v in vs)} ms"
+                      for k, vs in ips.items()))
+    print(f"[time] {card}: viewer round trip per {WIDTH}x{HEIGHT} frame (request sent to "
+          f"frame, verify string and metrics received; median of {VIEWER_ROUNDS - 1} after "
+          "the first): " + "; ".join(f"{k} {v:.4f} ms" for k, v in viewer_ms.items()))
 
 
 # --- the mesh and eval paths ---------------------------------------------------
@@ -1707,12 +2110,13 @@ def time_serving(state, cam, device, card):
     print_device("Gaussian-sharded serving frame", kernel_ms, top, sharded_ms)
 
 
-def time_training(state, cams, gts, card, mesh=None):
+def time_training(state, cams, gts, card, mesh=None, dino_fn=None, first_iter=1):
     """make_train_step on bench.py's state, or with `mesh`
     make_mp_train_step (gaussian_sharded_pallas) on its per-slot chunks:
     iterations/s (median step of FRAMES, each step's output feeding the
-    next), the per-stage breakdown by CUDA events, and the device busy
-    share from torch.profiler."""
+    next, from iteration `first_iter`), the per-stage breakdown by CUDA
+    events, and the device busy share from torch.profiler. `dino_fn`: the
+    single-device step with the DINO term (its tower runs in "losses")."""
     import torch
     from gaussmart_tpu_torch.config import OptimizationParams
     from gaussmart_tpu_torch.optim import init_adam
@@ -1729,16 +2133,16 @@ def time_training(state, cams, gts, card, mesh=None):
     kw = dict(sh_degree=SH_DEGREE, white_background=False, spatial_lr_scale=1.0,
               phase=mark)
     if mesh is None:
-        step = make_train_step(OptimizationParams(), backend="auto", **kw)
+        step = make_train_step(OptimizationParams(), backend="auto", dino_fn=dino_fn, **kw)
         params, adam, aux = state.params, init_adam(state.params), state.aux
-        what = "training step"
+        what = "training step" + (" with the DINO term" if dino_fn else "")
     else:
         step = make_mp_train_step(OptimizationParams(), mesh,
                                   backend="gaussian_sharded_pallas", **kw)
         params, adam, aux = shard_state(state.params, init_adam(state.params), state.aux,
                                         mesh)
         what = f"Gaussian-sharded training step over {mesh.size} slots on one card"
-    carry = {"params": params, "adam": adam, "aux": aux, "it": 1}
+    carry = {"params": params, "adam": adam, "aux": aux, "it": first_iter}
 
     def one():
         i = carry["it"]
@@ -2067,6 +2471,10 @@ def main(argv=None):
         counts, losses = train_path(root, args.seed, N_SPLATS, WIDTH, HEIGHT, dev)
         mp_counts = train_slots_path(root, dev, losses)
 
+        # 8. the DINO tower and term; the viewer
+        phase8 = dino_viewer_path(root, args.seed, model, cams, state_s, state_t, cams_t,
+                                  gts_t, dev)
+
     # 6. timings
     time_serving(state_s, cams[0].params(dev), dev, card)
     ips = time_training(state_t, cams_t, gts_t, card)
@@ -2085,6 +2493,7 @@ def main(argv=None):
     time_mp_launches(record_mp_launches(state_t, cams_t, gts_t, make_mesh(N_SLOTS, dev)),
                      WIDTH, HEIGHT, card)
     time_reduction(io_t, card)
+    time_dino_viewer(*phase8, state_t, cams_t, gts_t, card)
 
     # 7. the mesh export and evaluation paths, after the timings above so
     # that their host and device work does not run beside them

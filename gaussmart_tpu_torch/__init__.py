@@ -8,7 +8,9 @@ points run on a CUDA device unless the caller asks for the CPU
 
 It covers serving (``python -m gaussmart_tpu_torch.render_cli -m <model>
 --skip_mesh``), training (``python -m gaussmart_tpu_torch.train -s <scene>
--m <out>``) and both over D device slots (``--n_devices D``; parallel/).
+-m <out>``, with the DINO term) and both over D device slots
+(``--n_devices D``; parallel/), mesh export, evaluation and the live
+viewer.
 Every TPU kernel of those paths is a hand-written CUDA kernel (csrc/): the
 tile compositor forward and backward, their seeded variants for
 Gaussian-sharded rendering, and the sorted segment sum; each has its plain
@@ -19,7 +21,10 @@ Layer map:
   io/         - PLY, PNG/TIFF, COLMAP, dataset readers, Gaussian snapshots
   models/     - Gaussian state (fixed capacity + active mask)
   render/     - preprocess, dense compositor, tiled compositor + kernels
-  mesh/       - GaussianExtractor (render every view, export images)
+  mesh/       - GaussianExtractor, TSDF fusion, marching tetrahedra
+  eval/       - metrics CLI, LPIPS, Chamfer, F-score, cull
+  semantics/  - DINO tower and heatmap CLI, segment-aware densification
+  viewer/     - network_gui protocol, viewer CLI, a scripted client
   parallel/   - device slots: data-parallel, row- and Gaussian-sharded
   kernels.py  - nvcc build + ctypes loading of csrc/*.cu
 """

@@ -181,7 +181,7 @@ def _bg(white_background: bool, device) -> torch.Tensor:
 def make_dp_train_step(opt: OptimizationParams, mesh: Mesh, *, sh_degree: int,
                        white_background: bool, depth_ratio: float = 0.0,
                        backend: str = "auto", spatial_lr_scale: float = 1.0,
-                       adam_on_densify: str = "drop"):
+                       adam_on_densify: str = "drop", dino_fn: Optional[Callable] = None):
     """Camera data-parallel step ``step(params, adam, aux, cams, gt_images,
     iteration) -> (params, adam, aux, StepMetrics, iteration + 1)``.
 
@@ -190,7 +190,9 @@ def make_dp_train_step(opt: OptimizationParams, mesh: Mesh, *, sh_degree: int,
     (``shard_batch``). Each slot renders and differentiates its view; on
     slot 0 the gradients are averaged (gradient accumulation over the D
     views), the densify statistics summed and the radii maxed, then one
-    masked Adam step, replicated back to every slot."""
+    masked Adam step, replicated back to every slot. `dino_fn` (the DINO
+    term, train._build_dino_fn) is taken on each slot's view, on its
+    device."""
     _check_adam_on_densify(adam_on_densify)
     dev0 = mesh.devices[0]
 
@@ -203,7 +205,7 @@ def make_dp_train_step(opt: OptimizationParams, mesh: Mesh, *, sh_degree: int,
             total, ex = _loss_and_aux(leaves, means2d, aux[i], cams[i].index(0),
                                      gt_images[i][0], iteration, opt,
                                      _bg(white_background, dev), sh_degree,
-                                     depth_ratio, backend)
+                                     depth_ratio, backend, dino_fn)
             total.backward()
             totals.append(total.detach().to(dev0))
             extras.append({k: v.detach().to(dev0) for k, v in ex.items()})
@@ -245,6 +247,7 @@ def make_mp_train_step(opt: OptimizationParams, mesh: Mesh, *, sh_degree: int,
                        white_background: bool, depth_ratio: float = 0.0,
                        spatial_lr_scale: float = 1.0, adam_on_densify: str = "drop",
                        backend: str = "gaussian_sharded",
+                       dino_fn: Optional[Callable] = None,
                        phase: Optional[Callable[[str], None]] = None):
     """Gaussian-sharded (model-parallel) step ``step(params, adam, aux, cam,
     gt_image, iteration) -> (params, adam, aux, StepMetrics, iteration +
@@ -255,7 +258,8 @@ def make_mp_train_step(opt: OptimizationParams, mesh: Mesh, *, sh_degree: int,
     One camera per iteration, as the single-device step. Each chunk is
     preprocessed on its slot; render_gaussian_sharded moves the prep rows
     to their stratum's slot and folds the strata on slot 0, where the loss
-    is taken (cam and gt_image live there); autograd brings the gradients
+    is taken (cam and gt_image live there; so is the DINO term `dino_fn`,
+    when given); autograd brings the gradients
     back to each chunk, which takes its densify statistics and masked Adam
     step as in train_lib.make_train_step. backend: "gaussian_sharded"
     composites each stratum with the dense compositor,
@@ -274,7 +278,7 @@ def make_mp_train_step(opt: OptimizationParams, mesh: Mesh, *, sh_degree: int,
                                device=p.xyz.device, requires_grad=True) for p in params]
         total, extras = _loss_and_aux(leaves, means2d, aux, cam, gt_image, iteration,
                                       opt, _bg(white_background, cam.device), sh_degree,
-                                      depth_ratio, backend, phase=mark, mesh=mesh)
+                                      depth_ratio, backend, dino_fn, mark, mesh=mesh)
         total.backward()
         mark("backward")
         out = [_apply_update(params[i], _grads(leaves[i]), adam[i], aux[i],

@@ -1,0 +1,119 @@
+"""DINO CLS-patch similarity heatmap CLI (counterpart of
+gaussmart_tpu/semantics/visualize.py):
+``python -m gaussmart_tpu_torch.semantics.visualize -i <image.png> -o
+<out.png> [--alpha --random_encoder --device]``.
+
+The card's machine has neither OpenCV nor Pillow: images are read and
+written by io/images.py (8-bit PNGs only; the JAX CLI reads any format
+Pillow reads), the upsample of the heatmap is a numpy copy of
+cv2.resize(INTER_LINEAR) and the colour map is OpenCV's turbo table,
+round(trajectory.TURBO * 255).
+"""
+from __future__ import annotations
+
+from argparse import ArgumentParser
+
+import numpy as np
+import torch
+
+from gaussmart_tpu_torch.io.images import read_png, write_png
+from gaussmart_tpu_torch.runtime import resolve_device, setup
+from gaussmart_tpu_torch.semantics.dino import DinoEncoder
+from gaussmart_tpu_torch.trajectory import TURBO
+
+# cv2.applyColorMap(..., COLORMAP_TURBO) as RGB rows, one per uint8 level
+TURBO_U8 = np.round(TURBO * 255).astype(np.uint8)
+
+
+@torch.no_grad()
+def cls_patch_heatmap(encoder: DinoEncoder, image: np.ndarray) -> np.ndarray:
+    """CLS-token vs patch-token cosine similarity map in [0,1].
+
+    encoder: DinoEncoder (on any device); image: [3,H,W] float in [0,1].
+    Returns [g,g] heatmap (g = image_size/patch).
+    """
+    # one forward-pass definition: the same encoder.tokens the loss uses
+    x = encoder.tokens(torch.as_tensor(image, dtype=torch.float32, device=encoder.device))
+    g = encoder.image_size // encoder.patch
+    cls_t = x[0] / torch.linalg.norm(x[0])
+    # patch tokens start after the prefix (CLS [+ DINOv3 register tokens])
+    pats = x[encoder.n_prefix:]
+    patches = pats / torch.linalg.norm(pats, dim=-1, keepdim=True)
+    sim = patches @ cls_t
+    sim = (sim - sim.min()) / torch.clamp_min(sim.max() - sim.min(), 1e-9)
+    return sim.reshape(g, g).cpu().numpy()
+
+
+def _linear_taps(n_out: int, n_in: int):
+    """Source indices and weights of cv2's INTER_LINEAR along one axis:
+    sample (i + 0.5) * n_in / n_out - 0.5, clamped to the edge pixels."""
+    f = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    i0 = np.floor(f).astype(np.int64)
+    frac = f - i0
+    low, high = i0 < 0, i0 >= n_in - 1
+    i0[low], frac[low] = 0, 0.0
+    i0[high], frac[high] = n_in - 1, 0.0
+    return i0, np.minimum(i0 + 1, n_in - 1), frac
+
+
+def resize_linear_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR) of a
+    2-D uint8 image, within one level (OpenCV rounds its weights to 11
+    bits)."""
+    y0, y1, fy = _linear_taps(height, img.shape[0])
+    x0, x1, fx = _linear_taps(width, img.shape[1])
+    src = img.astype(np.float64)
+    top = src[y0][:, x0] * (1 - fx) + src[y0][:, x1] * fx
+    bottom = src[y1][:, x0] * (1 - fx) + src[y1][:, x1] * fx
+    out = top * (1 - fy)[:, None] + bottom * fy[:, None]
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def overlay_heatmap(image: np.ndarray, heat: np.ndarray,
+                    alpha: float = 0.5) -> np.ndarray:
+    """Blend a turbo-coloured heatmap over an [H,W,3] image in [0,1]."""
+    h, w = image.shape[:2]
+    heat_img = resize_linear_u8((heat * 255).astype(np.uint8), w, h)
+    heat_rgb = TURBO_U8[heat_img] / 255.0
+    return (1 - alpha) * image + alpha * heat_rgb
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """An 8-bit PNG as [H,W,3] float32 in [0,1], converted to RGB as
+    Pillow's convert("RGB") does (grey repeated, alpha dropped)."""
+    img = read_png(path)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=2)
+    elif img.shape[2] == 2:
+        img = np.repeat(img[..., :1], 3, axis=2)
+    return img[..., :3].astype(np.float32) / 255.0
+
+
+def main(argv=None):
+    setup()
+    parser = ArgumentParser(description="DINO heatmap visualization")
+    parser.add_argument("-i", "--image", required=True)
+    parser.add_argument("-o", "--output", required=True)
+    parser.add_argument("--alpha", type=float, default=0.5)
+    parser.add_argument("--random_encoder", action="store_true",
+                        help="use a random-weight encoder (no checkpoint)")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="where to run the encoder (cuda unless asked otherwise)")
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+
+    if args.random_encoder:
+        enc = DinoEncoder.random(depth=2, dim=192, image_size=224)
+    else:
+        enc = DinoEncoder.create()
+    enc = enc.to(device)
+
+    rgb = read_rgb(args.image)
+    heat = cls_patch_heatmap(enc, rgb.transpose(2, 0, 1))
+    out = overlay_heatmap(rgb, heat, args.alpha)
+    write_png(args.output, np.clip(out * 255, 0, 255).astype(np.uint8))
+    print(f"saved {args.output}")
+
+
+if __name__ == "__main__":
+    main()

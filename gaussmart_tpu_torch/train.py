@@ -19,16 +19,20 @@ reset, snapshots and checkpoints run on the gathered state (file formats
 unchanged), which is then placed on the slots again, its capacity a
 multiple of D.
 
-Not in this slice: --gui (viewer slice) and --run_segmentation (semantics
-slice) raise before any work. The DINO tower is not ported yet: --dino_mode
-fixed/parity trains without the term, as the JAX trainer does wherever
-the encoder cannot load; in-loop eval reports L1, PSNR and SSIM (LPIPS
-comes with the eval slice). The binning never drops a (splat, tile)
-pair, so there is no duplicate budget to grow and train_stats.csv's
-n_dropped column is always 0.
+``--dino_mode fixed`` (default) adds lambda_dino * (1 - cos) of the DINO
+embeddings of the render and its target (semantics/dino.py) past
+``--dino_start_iter``, in all three steps; ``parity`` logs +lambda * cos
+with no gradient; ``off`` leaves it out. Without encoder weights
+($GAUSSMART_DINO_WEIGHTS, or the default paths) the term is disabled with
+a message, as in the JAX trainer. ``--gui`` serves the live viewer
+(viewer/protocol.py) once per iteration on ``--ip``/``--port``.
+``--run_segmentation`` (the semantics slice) raises before any work. The
+binning never drops a (splat, tile) pair, so there is no duplicate budget
+to grow and train_stats.csv's n_dropped column is always 0.
 """
 from __future__ import annotations
 
+import copy
 import csv
 import json
 import os
@@ -45,6 +49,7 @@ from gaussmart_tpu_torch.config import (ModelParams, OptimizationParams,
 from gaussmart_tpu_torch.eval.lpips import load_lpips
 from gaussmart_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from gaussmart_tpu_torch.logging_utils import TensorBoardLogger, profile_trace
+from gaussmart_tpu_torch.losses import dino_term
 from gaussmart_tpu_torch.models.gaussians import grow_capacity
 from gaussmart_tpu_torch.ops.image import l1_loss, psnr as psnr_fn
 from gaussmart_tpu_torch.ops.ssim import ssim as ssim_fn
@@ -57,8 +62,11 @@ from gaussmart_tpu_torch.parallel.sharding import (BatchedCameras, gather_state,
 from gaussmart_tpu_torch.render.api import render
 from gaussmart_tpu_torch.runtime import resolve_device, setup
 from gaussmart_tpu_torch.scene import Scene
+from gaussmart_tpu_torch.semantics.dino import DinoEncoder
 from gaussmart_tpu_torch.train_lib import (make_densify_step, make_train_step,
                                            reset_opacity)
+from gaussmart_tpu_torch.viewer.protocol import NetworkGUI, serve_frame
+from gaussmart_tpu_torch.viewer.serve import frame_renderer
 
 
 def training(dataset: ModelParams, opt: OptimizationParams,
@@ -70,10 +78,12 @@ def training(dataset: ModelParams, opt: OptimizationParams,
              seed: int = 0, quiet: bool = False,
              capacity: Optional[int] = None, log_every: int = 10,
              tensorboard: bool = True, adam_on_densify: str = "drop",
-             device="cuda", n_devices: int = 1, parallel_mode: str = "dp"):
+             device="cuda", n_devices: int = 1, parallel_mode: str = "dp",
+             gui: Optional[NetworkGUI] = None):
     """Train; returns the (state, adam) on `device`. n_devices > 1 trains
     over that many device slots, parallel_mode "dp" (camera data-parallel)
-    or "mp" (Gaussian-sharded)."""
+    or "mp" (Gaussian-sharded). `gui` (an initialised NetworkGUI) is
+    served once per iteration."""
     if parallel_mode not in ("dp", "mp"):
         raise ValueError(f"parallel_mode={parallel_mode!r}: expected 'dp' or 'mp'")
     os.makedirs(dataset.model_path, exist_ok=True)
@@ -85,9 +95,8 @@ def training(dataset: ModelParams, opt: OptimizationParams,
     if start_checkpoint:
         state, adam, first_iter = load_checkpoint(start_checkpoint, device=device)
         print(f"Resumed from {start_checkpoint} at iteration {first_iter}")
-    if use_dino_loss:
-        print(f"[dino] the DINO tower is not in the port yet; training without "
-              f"the DINO term (--dino_mode {dino_mode})")
+    dino_fn = (_build_dino_fn(lambda_dino, dino_start_iter, dino_mode, device)
+               if use_dino_loss else None)
 
     loss_log_path = os.path.join(dataset.model_path, "dino_loss_log.csv")
     log_fields = ["iteration", "dino_loss", "total_loss", "l1_loss",
@@ -105,7 +114,7 @@ def training(dataset: ModelParams, opt: OptimizationParams,
     common = dict(sh_degree=state.max_sh_degree,
                   white_background=dataset.white_background,
                   depth_ratio=pipe.depth_ratio, spatial_lr_scale=state.spatial_lr_scale,
-                  adam_on_densify=adam_on_densify)
+                  adam_on_densify=adam_on_densify, dino_fn=dino_fn)
     if mp:
         step = make_mp_train_step(opt, mesh, backend=sharded_render_backend(pipe.backend),
                                   **common)
@@ -235,6 +244,16 @@ def training(dataset: ModelParams, opt: OptimizationParams,
             if densify_now or reset_now:
                 params, adam, aux = place(state.params, adam, state.aux)
 
+        if gui is not None:
+            if mp:
+                shown = [state.replace(params=p, aux=x) for p, x in zip(params, aux)]
+            elif mesh is not None:     # dp: replica 0
+                shown = state.replace(params=params[0], aux=aux[0])
+            else:
+                shown = state.replace(params=params, aux=aux)
+            _serve_gui(gui, shown, pipe, dataset, ema, iteration, opt.iterations,
+                       mesh=mesh if mp else None, device=device)
+
         if iteration in checkpoint_iterations:
             print(f"\n[ITER {iteration}] Saving Checkpoint")
             p, a, x = gathered(params, adam, aux)
@@ -247,6 +266,57 @@ def training(dataset: ModelParams, opt: OptimizationParams,
         tb.close()
     params, adam, aux = gathered(params, adam, aux)
     return state.replace(params=params, aux=aux), adam
+
+
+def _serve_gui(gui: NetworkGUI, state, pipe, dataset, ema, iteration: int, max_iters: int,
+               mesh=None, device="cuda"):
+    """One poll/serve round of the live viewer (JAX train.py:357-386):
+    accept a waiting viewer, then answer its requests until it asks to
+    train on (or leaves). `state` is one GaussianState or, with `mesh`, the
+    per-slot chunks of the Gaussian-sharded state, rendered through the
+    sharded fold (K3 on the card)."""
+    if gui.conn is None:
+        gui.try_connect(dataset.render_items)
+        if gui.conn is None:
+            return
+    frame = frame_renderer(state, pipe, dataset.white_background, device, mesh)
+    chunks = state if mesh is not None else [state]
+    metrics = {"#": sum(int(s.n_active) for s in chunks), "loss": ema["loss"]}
+    while gui.conn is not None:
+        do_training, keep_alive = serve_frame(gui, frame, dataset.render_items,
+                                              dataset.source_path, metrics)
+        if do_training and (iteration < max_iters or not keep_alive):
+            break
+
+
+def _build_dino_fn(lambda_dino: float, start_iter: int, mode: str, device):
+    """The DINO embedding term ``dino_fn(image, gt, iteration)`` of the
+    training steps (JAX train.py:423-440), or None when no encoder weights
+    are found: the term is then 0, as in the JAX trainer. Past `start_iter`
+    it is losses.dino_term; at or below it the tower is skipped and the
+    term is 0 with a zero gradient, what JAX's where(iteration >
+    start_iter, term, 0) gives. The encoder is copied once to each device
+    it meets (a dp slot's view lies on its slot's device; slots sharing a
+    card share one copy)."""
+    try:
+        encoder = DinoEncoder.create()
+    except FileNotFoundError as e:
+        print(f"[dino] encoder unavailable ({e}); DINO loss disabled")
+        return None
+    encoders = {torch.device("cpu"): encoder}
+
+    def on(dev: torch.device) -> DinoEncoder:
+        if dev not in encoders:
+            encoders[dev] = copy.deepcopy(encoder).to(dev)
+        return encoders[dev]
+    on(torch.empty(0, device=device).device)    # placed before the first step
+
+    def fn(image, gt, iteration: int):
+        if iteration <= start_iter:
+            return torch.zeros((), dtype=torch.float32, device=image.device)
+        return dino_term(image, gt, on(image.device), lambda_dino, mode=mode)
+
+    return fn
 
 
 def _flush_log(path, fields, rows):
@@ -383,11 +453,9 @@ def build_parser() -> ArgumentParser:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, on, where in (("--gui", args.gui, "viewer"),
-                            ("--run_segmentation", args.run_segmentation,
-                             "semantics")):
-        if on:
-            raise NotImplementedError(f"{flag} comes with the {where} slice of the port")
+    if args.run_segmentation:
+        raise NotImplementedError("--run_segmentation comes with the semantics slice "
+                                  "of the port")
     setup()
     device = resolve_device(args.device)
     args.save_iterations.append(args.iterations)
@@ -401,16 +469,25 @@ def main(argv=None):
     os.makedirs(dataset.model_path, exist_ok=True)
     save_cfg(dataset.model_path, args)
 
-    with profile_trace(args.profile_dir):
-        out = training(dataset, opt, pipe, args.test_iterations, args.save_iterations,
-                       args.checkpoint_iterations, args.start_checkpoint,
-                       use_dino_loss=(args.dino_mode != "off"),
-                       lambda_dino=args.lambda_dino,
-                       dino_start_iter=args.dino_start_iter,
-                       dino_mode=args.dino_mode, seed=args.seed, quiet=args.quiet,
-                       capacity=args.capacity, tensorboard=not args.no_tensorboard,
-                       adam_on_densify=args.adam_on_densify, device=device,
-                       n_devices=args.n_devices, parallel_mode=args.parallel_mode)
+    gui = None
+    if args.gui:
+        gui = NetworkGUI()
+        gui.init(args.ip, args.port)
+    try:
+        with profile_trace(args.profile_dir):
+            out = training(dataset, opt, pipe, args.test_iterations, args.save_iterations,
+                           args.checkpoint_iterations, args.start_checkpoint,
+                           use_dino_loss=(args.dino_mode != "off"),
+                           lambda_dino=args.lambda_dino,
+                           dino_start_iter=args.dino_start_iter,
+                           dino_mode=args.dino_mode, seed=args.seed, quiet=args.quiet,
+                           capacity=args.capacity, tensorboard=not args.no_tensorboard,
+                           adam_on_densify=args.adam_on_densify, device=device,
+                           n_devices=args.n_devices, parallel_mode=args.parallel_mode,
+                           gui=gui)
+    finally:
+        if gui is not None:
+            gui.shutdown()
     print("\nTraining complete.")
     return out
 

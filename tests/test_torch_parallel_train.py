@@ -2,8 +2,10 @@
 (gaussmart_tpu_torch/parallel/sharding.py) against the JAX package's
 training steps over make_mesh(4) of the 8 virtual CPU devices: one
 Gaussian-sharded step with each inner compositor and one camera
-data-parallel step, on test_parallel.py's scene at 32x24; and the train
-driver with --n_devices 4 --parallel_mode mp through a densify pass."""
+data-parallel step, on test_parallel.py's scene at 32x24, each also with
+the DINO term (the JAX trainer's against the port's, the same random
+tower); and the trainer with --n_devices 4 --parallel_mode mp
+through a densify pass."""
 import csv
 import dataclasses
 import json
@@ -19,12 +21,14 @@ from PIL import Image
 from gaussmart_tpu.config import OptimizationParams as JOpt
 from gaussmart_tpu.optim import init_adam as j_init_adam
 from gaussmart_tpu.parallel import sharding as jsh
+from gaussmart_tpu.train import _build_dino_fn as j_build_dino_fn
 from gaussmart_tpu_torch import train as ttrain
 from gaussmart_tpu_torch.config import (ModelParams, OptimizationParams,
                                         PipelineParams)
 from gaussmart_tpu_torch.io.ply import store_point_cloud
 from gaussmart_tpu_torch.optim import init_adam
 from gaussmart_tpu_torch.parallel import sharding as tsh
+from gaussmart_tpu_torch.semantics.dino import WEIGHT_ENV
 
 from test_torch_parallel import D, H, W, _camera, _np, _scene, meshes  # noqa: F401
 
@@ -135,6 +139,87 @@ def test_dp_train_step_matches_jax(meshes):
     np.testing.assert_array_equal(_np(x[0].denom), np.asarray(jx.denom))
     assert _np(x[0].denom).max() > 1.0          # seen from several of the views
     np.testing.assert_allclose(_np(x[0].max_radii2d), np.asarray(jx.max_radii2d))
+
+
+@pytest.fixture(scope="module")
+def dino_fns():
+    """(JAX dino_fn, port dino_fn): each trainer's _build_dino_fn with
+    GAUSSMART_DINO_WEIGHTS=random (the same random tower), fixed mode,
+    lambda 0.05, open from iteration 1."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(WEIGHT_ENV, "random")
+        return (j_build_dino_fn(0.05, 0, "fixed"),
+                ttrain._build_dino_fn(0.05, 0, "fixed", "cpu"))
+
+
+def test_mp_train_step_with_the_dino_term_matches_jax(meshes, dino_fns):
+    """make_mp_train_step (dense strata) with the DINO term, taken on slot
+    0, against the JAX step with its term on make_mesh(4): the term, the
+    loss, params, Adam moments and densify statistics after one step, at
+    the dense mp step's tolerances above."""
+    jmesh, tmesh = meshes
+    js, ts, cams, gts = _step_inputs()
+    jfn, tfn = dino_fns
+    jstep = jsh.make_mp_train_step(JOpt(), jmesh, sh_degree=0, white_background=False,
+                                   dino_fn=jfn)
+    jp, ja, jx, jm, _ = jstep(*jsh.shard_state(js.params, j_init_adam(js.params), js.aux,
+                                               jmesh),
+                              cams[0][0].params(), jnp.asarray(gts[0]),
+                              jnp.asarray(1, jnp.int32))
+    step = tsh.make_mp_train_step(OptimizationParams(), tmesh, sh_degree=0,
+                                  white_background=False, dino_fn=tfn)
+    p, a, x = tsh.shard_state(ts.params, init_adam(ts.params), ts.aux, tmesh)
+    p, a, x, m, _ = step(p, a, x, cams[0][1].params("cpu"), torch.tensor(gts[0]), 1)
+    p, a, x = tsh.gather_state(p, a, x, "cpu")
+    t_tol, p_tol, mu_tol, acc_tol = MP_TOLS["gaussian_sharded"]
+    assert m.dino.item() > 0
+    np.testing.assert_allclose(m.dino.item(), float(jm.dino), rtol=1e-4)
+    np.testing.assert_allclose(m.total.item(), float(jm.total), atol=t_tol)
+    for name in ("xyz", "opacity", "scaling", "features_dc"):
+        ref = np.asarray(getattr(jp, name))
+        np.testing.assert_allclose(_np(getattr(p, name)), ref,
+                                   atol=p_tol * max(1.0, np.abs(ref).max()), err_msg=name)
+    np.testing.assert_allclose(_np(a.mu.xyz), np.asarray(ja.mu.xyz), atol=mu_tol[0],
+                               rtol=mu_tol[1])
+    np.testing.assert_allclose(_np(x.grad_accum), np.asarray(jx.grad_accum),
+                               atol=acc_tol[0], rtol=acc_tol[1])
+    np.testing.assert_array_equal(_np(x.denom), np.asarray(jx.denom))
+
+
+def test_dp_train_step_with_the_dino_term_matches_jax(meshes, dino_fns):
+    """make_dp_train_step with the DINO term, one view and one tower call
+    per slot, against the JAX step with its term on make_mesh(4): the
+    mean term, the loss, params, Adam moments and the summed densify
+    statistics, at the dp step's tolerances above."""
+    jmesh, tmesh = meshes
+    js, ts, cams, gts = _step_inputs(seed=5, views=D)
+    jfn, tfn = dino_fns
+    jstep = jsh.make_dp_train_step(JOpt(), jmesh, sh_degree=0, white_background=False,
+                                   backend="dense", spatial_lr_scale=1.0, dino_fn=jfn)
+    batched = jsh.BatchedCameras.stack([c[0].params() for c in cams])
+    jp, ja, jx, jm, _ = jstep(*jsh.replicate((js.params, j_init_adam(js.params), js.aux),
+                                             jmesh),
+                              *jsh.shard_batch((batched, jnp.asarray(gts)), jmesh),
+                              jnp.asarray(1, jnp.int32))
+    tstep = tsh.make_dp_train_step(OptimizationParams(), tmesh, sh_degree=0,
+                                   white_background=False, backend="dense",
+                                   spatial_lr_scale=1.0, dino_fn=tfn)
+    tb = tsh.BatchedCameras.stack([c[1].params("cpu") for c in cams])
+    p, a, x, m, _ = tstep(tsh.replicate(ts.params, tmesh),
+                          tsh.replicate(init_adam(ts.params), tmesh),
+                          tsh.replicate(ts.aux, tmesh), tsh.shard_batch(tb, tmesh),
+                          tsh.shard_batch(torch.tensor(gts), tmesh), 1)
+    assert m.dino.item() > 0
+    np.testing.assert_allclose(m.dino.item(), float(jm.dino), rtol=1e-4)
+    np.testing.assert_allclose(m.total.item(), float(jm.total), atol=1e-4)
+    for name in ("xyz", "opacity", "scaling", "rotation", "features_dc"):
+        ref = np.asarray(getattr(jp, name))
+        np.testing.assert_allclose(_np(getattr(p[0], name)), ref,
+                                   atol=5e-4 * max(1.0, np.abs(ref).max()), err_msg=name)
+    np.testing.assert_allclose(_np(a[0].mu.xyz), np.asarray(ja.mu.xyz), atol=1e-4)
+    np.testing.assert_allclose(_np(x[0].grad_accum), np.asarray(jx.grad_accum),
+                               atol=1e-4, rtol=0.05)
+    np.testing.assert_array_equal(_np(x[0].denom), np.asarray(jx.denom))
 
 
 def _blender_scene(src, rng):

@@ -126,14 +126,18 @@ def test_cli_renders_match_jax_extractor(tmp_path):
 def test_port_imports_no_jax(tmp_path):
     """Importing every module of the port (gaussmart_tpu_torch.parallel
     too) and chip_smoke.py, and running the render CLI (with its mesh
-    export), the metrics CLI and the train CLI, each also over 2 device
-    slots (--shard_mode gaussian; dp and mp), leaves neither jax nor
-    gaussmart_tpu in sys.modules, nor PIL, cv2 or matplotlib, which the
-    card's machine lacks."""
+    export), the metrics CLI, the train CLI (each also over 2 device slots:
+    --shard_mode gaussian; dp and mp, with the DINO term on the random
+    tower), the DINO heatmap CLI and the viewer CLI answering a scripted
+    client, leaves neither jax nor gaussmart_tpu in sys.modules, nor
+    transformers, PIL, cv2 or matplotlib, which the card's machine lacks."""
     model, cfg = _model_dir(str(tmp_path), n=40)
     src, out = cfg["source_path"], str(tmp_path / "trained")
+    png, heat = str(tmp_path / "in.png"), str(tmp_path / "heat.png")
+    Image.fromarray((np.random.default_rng(0).random((30, 40, 3)) * 255).astype(np.uint8)).save(png)
     code = f"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
+import numpy as np
 import gaussmart_tpu_torch, gaussmart_tpu_torch.parallel, chip_smoke
 for m in pkgutil.walk_packages(gaussmart_tpu_torch.__path__, "gaussmart_tpu_torch."):
     importlib.import_module(m.name)
@@ -147,10 +151,30 @@ args = ["-s", {src!r}, "--sh_degree", "1", "--iterations", "3", "--test_iteratio
         "--device", "cpu", "--no_tensorboard", "--quiet", "--capacity", "256",
         "--dino_mode", "off"]
 train.main(args + ["-m", {out!r}])
-train.main(args + ["-m", {out + "_dp"!r}, "--n_devices", "2"])
-train.main(args + ["-m", {out + "_mp"!r}, "--n_devices", "2", "--parallel_mode", "mp"])
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gaussmart_tpu",
-                                                           "PIL", "cv2", "matplotlib"))
+os.environ["GAUSSMART_DINO_WEIGHTS"] = "random"
+dino = ["--dino_mode", "fixed", "--dino_start_iter", "0"]
+train.main(args + ["-m", {out + "_dp"!r}, "--n_devices", "2"] + dino)
+train.main(args + ["-m", {out + "_mp"!r}, "--n_devices", "2", "--parallel_mode", "mp"] + dino)
+from gaussmart_tpu_torch.semantics import visualize
+visualize.main(["-i", {png!r}, "-o", {heat!r}, "--random_encoder", "--device", "cpu"])
+from gaussmart_tpu_torch.cameras import Camera
+from gaussmart_tpu_torch.viewer import client, protocol, serve
+clients = []
+class ConnectedGUI(protocol.NetworkGUI):
+    def init(self, host, port):
+        super().init(host, port)
+        cam = Camera(uid=0, colmap_id=0, image_name="v", R=np.eye(3),
+                     T=np.array([0, 0, 3.0]), fovx=0.9, fovy=0.9, width=32, height=24)
+        clients.append(client.ViewerClient(self.listener.getsockname()[1],
+                                           [client.camera_request(cam, m) for m in (0, 4)]))
+        clients[0].start()
+        assert clients[0].connected.wait(30)
+serve.NetworkGUI = ConnectedGUI
+serve.main(["-m", {model!r}, "--port", "0", "--device", "cpu", "--max_frames", "2"])
+clients[0].join(30)
+assert clients[0].error is None and [len(f[0]) for f in clients[0].frames] == [32 * 24 * 3] * 2
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "gaussmart_tpu", "transformers", "PIL", "cv2", "matplotlib"))
 assert not bad, bad
 print("CLEAN")
 """
@@ -168,6 +192,7 @@ print("CLEAN")
     for o in (out, out + "_dp", out + "_mp"):
         assert os.path.exists(os.path.join(o, "point_cloud", "iteration_3", "point_cloud.ply"))
         assert os.path.exists(os.path.join(o, "eval_3.json"))
+    assert _png(heat).shape == (30, 40, 3)
 
 
 def test_cli_refuses_what_this_slice_does_not_serve(tmp_path, monkeypatch):

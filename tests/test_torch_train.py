@@ -1,8 +1,9 @@
 """The training slice of the port against the JAX package: SSIM, image
 metrics, losses, the learning-rate schedule, masked Adam, densify/prune
 with the same split noise, init_from_pcd, a 20-step trajectory with one
-densify pass on the dense path, checkpoints across the packages, and the
-port's train CLI on the CPU."""
+densify pass on the dense path, a step with the DINO term on both sides
+of its gate, checkpoints across the packages, and the port's train CLI on
+the CPU (with the DINO term, without weights, and serving the viewer)."""
 import csv
 import dataclasses
 import importlib
@@ -18,6 +19,7 @@ from PIL import Image
 
 from gaussmart_tpu import losses as jl
 from gaussmart_tpu import optim as jo
+from gaussmart_tpu import train as jtrain
 from gaussmart_tpu import transforms as jt
 from gaussmart_tpu.cameras import Camera as JCamera
 from gaussmart_tpu.config import OptimizationParams as JOpt
@@ -38,7 +40,10 @@ from gaussmart_tpu_torch.models import densify as td
 from gaussmart_tpu_torch.models import gaussians as tg
 from gaussmart_tpu_torch.ops import image as timg
 from gaussmart_tpu_torch.ops import ssim as tssim
+from gaussmart_tpu_torch.semantics import dino as tdino
 from gaussmart_tpu_torch.train_lib import make_train_step as t_make_train_step
+from gaussmart_tpu_torch.viewer.client import ViewerClient, camera_request
+from gaussmart_tpu_torch.viewer.protocol import NetworkGUI
 
 # the package re-exports ssim() under the module's name
 jssim = importlib.import_module("gaussmart_tpu.ops.ssim")
@@ -349,6 +354,61 @@ def test_twenty_steps_and_a_densify_pass_match_jax(rng):
                                atol=1e-3 * np.abs(np.asarray(jx.grad_accum)).max())
 
 
+DINO_GATE = 5
+
+
+@pytest.fixture(scope="module")
+def dino_steps():
+    """The JAX single-device step with the JAX trainer's DINO term and the
+    port's with its own (GAUSSMART_DINO_WEIGHTS=random: the same random
+    tower in both, fixed mode, gate at DINO_GATE), on 30 splats at 24x24,
+    and the state both start from."""
+    rng = np.random.default_rng(6)
+    n = 30
+    pts = np.stack([rng.uniform(-0.8, 0.8, n), rng.uniform(-0.8, 0.8, n),
+                    rng.uniform(2.5, 4.0, n)], axis=1).astype(np.float32)
+    cols = rng.random((n, 3)).astype(np.float32)
+    js = jg.init_from_pcd(pts, cols, None, max_sh_degree=1, spatial_lr_scale=1.0,
+                          capacity=64, seed=2)
+    ts = tg.init_from_pcd(pts, cols, None, max_sh_degree=1, spatial_lr_scale=1.0,
+                          capacity=64, seed=2, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(tdino.WEIGHT_ENV, "random")
+        jfn = jtrain._build_dino_fn(0.05, DINO_GATE, "fixed")
+        tfn = ttrain._build_dino_fn(0.05, DINO_GATE, "fixed", "cpu")
+    kw = dict(sh_degree=1, white_background=False, backend="dense", spatial_lr_scale=1.0)
+    jstep = j_make_train_step(JOpt(), dino_fn=jfn, donate=False, **kw)
+    tstep = t_make_train_step(TOpt(), dino_fn=tfn, **kw)
+    gt = rng.random((3, 24, 24)).astype(np.float32)
+    return js, ts, jstep, tstep, _cameras()[1], gt
+
+
+@pytest.mark.parametrize("iteration", [DINO_GATE, DINO_GATE + 1])
+def test_train_step_with_the_dino_term_matches_jax(dino_steps, iteration):
+    """One step of make_train_step with train._build_dino_fn's term against
+    the JAX step with the JAX trainer's, at the gate (term 0, the tower not
+    run) and past it: the DINO metric and the loss within 1e-4
+    (relative), params and Adam moments within 2e-3 of each group's scale
+    (the 20-step test's tolerances)."""
+    js, ts, jstep, tstep, (jcam, tcam), gt = dino_steps
+    jp, ja, jx, jm, _ = jstep(js.params, jo.init_adam(js.params), js.aux, jcam.params(),
+                              jnp.asarray(gt), jnp.asarray(iteration, jnp.int32))
+    tp, ta, tx, tm, _ = tstep(ts.params, to.init_adam(ts.params), ts.aux,
+                              tcam.params("cpu"), torch.tensor(gt), iteration)
+    if iteration <= DINO_GATE:
+        assert tm.dino.item() == float(jm.dino) == 0.0
+    else:
+        assert tm.dino.item() > 0 and np.isfinite(tm.dino.item())
+        np.testing.assert_allclose(tm.dino.item(), float(jm.dino), rtol=1e-4)
+    np.testing.assert_allclose(tm.total.item(), float(jm.total), rtol=1e-4)
+    for n_ in NAMES:
+        for got, ref, grp in ((tp, jp, "params"), (ta.mu, ja.mu, "mu"), (ta.nu, ja.nu, "nu")):
+            r = np.asarray(getattr(ref, n_))
+            np.testing.assert_allclose(_np(getattr(got, n_)), r, rtol=0,
+                                       atol=2e-3 * (np.abs(r).max() + 1e-30),
+                                       err_msg=f"{grp}.{n_}")
+
+
 def test_checkpoints_resume_across_the_packages(tmp_path, rng):
     """A checkpoint written by the JAX package loads in the port, and one
     written by the port loads in the JAX package, with every array equal."""
@@ -433,6 +493,82 @@ def test_train_cli_on_cpu_writes_the_jax_outputs(tmp_path, rng):
     assert (out / "point_cloud" / "iteration_32" / "point_cloud.ply").exists()
     with open(out / "dino_loss_log.csv") as f:
         assert [int(r["iteration"]) for r in csv.DictReader(f)] == [32]
-    for bad, match in ((["--gui"], "viewer"), (["--run_segmentation"], "semantics")):
-        with pytest.raises(NotImplementedError, match=match):
-            ttrain.main(common + bad)
+    with pytest.raises(NotImplementedError, match="semantics"):
+        ttrain.main(common + ["--run_segmentation"])
+
+
+def _short_run(src, out, *extra):
+    return ["-s", str(src), "-m", str(out), "-w", "--sh_degree", "1",
+            "--densify_from_iter", "100", "--densify_until_iter", "100",
+            "--opacity_reset_interval", "40", "--position_lr_max_steps", "10",
+            "--iterations", "10", "--test_iterations", "99", "--capacity", "256",
+            "--device", "cpu", "--no_tensorboard", "--quiet", *extra]
+
+
+def _dino_column(out):
+    with open(out / "dino_loss_log.csv") as f:
+        return [float(r["dino_loss"]) for r in csv.DictReader(f)]
+
+
+def test_train_cli_with_the_dino_term(tmp_path, rng, monkeypatch, capsys):
+    """The counterpart of test_train_cli.py's DINO run: with
+    GAUSSMART_DINO_WEIGHTS=random and --dino_start_iter 0 the dino_loss
+    column is non-zero and finite; with no weight file anywhere the CLI
+    prints the JAX trainer's message and the column is zeros."""
+    _blender_scene(tmp_path / "scene", rng)
+    monkeypatch.setenv(tdino.WEIGHT_ENV, "random")
+    ttrain.main(_short_run(tmp_path / "scene", tmp_path / "on", "--dino_mode", "fixed",
+                           "--dino_start_iter", "0"))
+    dino = _dino_column(tmp_path / "on")
+    assert dino and all(np.isfinite(d) and d > 0 for d in dino)
+
+    monkeypatch.setenv(tdino.WEIGHT_ENV, str(tmp_path / "none.npz"))
+    monkeypatch.setattr(tdino, "DEFAULT_PATHS", [str(tmp_path / "none.npz")])
+    capsys.readouterr()
+    ttrain.main(_short_run(tmp_path / "scene", tmp_path / "off", "--dino_start_iter", "0"))
+    assert "[dino] encoder unavailable (No DINO weights found" in capsys.readouterr().out
+    assert _dino_column(tmp_path / "off") == [0.0]
+
+
+def test_build_dino_fn_raises_on_a_corrupt_weight_file(tmp_path, monkeypatch):
+    """Intended: only a missing weight file disables the term (the JAX
+    trainer's message); a file that is there but does not load raises,
+    where the JAX trainer's bare `except Exception` disables the term."""
+    (tmp_path / "bad.npz").write_bytes(b"not an npz")
+    monkeypatch.setenv(tdino.WEIGHT_ENV, str(tmp_path / "bad.npz"))
+    with pytest.raises(ValueError):
+        ttrain._build_dino_fn(0.05, 0, "fixed", "cpu")
+    assert jtrain._build_dino_fn(0.05, 0, "fixed") is None
+
+
+def test_train_cli_serves_the_viewer(tmp_path, rng, monkeypatch):
+    """train.main --gui: a viewer connected before the first iteration asks
+    for a frame and to train on, three times (RGB, Depth, Normal), then
+    leaves; training goes on to its end. Each frame is the scene camera's
+    render of that iteration's splats, at the camera's size."""
+    _blender_scene(tmp_path / "scene", rng)
+    cam = TCamera(uid=0, colmap_id=0, image_name="v", R=np.eye(3), T=np.array([0, 0, 3.0]),
+                  fovx=0.8, fovy=0.8, width=24, height=20)
+    requests = [camera_request(cam, m, train=True) for m in (0, 3, 2)]
+    clients = []
+
+    class ConnectedGUI(NetworkGUI):
+        def init(self, host, port):
+            super().init(host, port)
+            clients.append(ViewerClient(self.listener.getsockname()[1], requests))
+            clients[0].start()
+            assert clients[0].connected.wait(30) and clients[0].error is None
+
+    monkeypatch.setattr(ttrain, "NetworkGUI", ConnectedGUI)
+    state, _ = ttrain.main(_short_run(tmp_path / "scene", tmp_path / "out", "--gui",
+                                      "--port", "0", "--dino_mode", "off"))
+    client, = clients
+    client.join(30)
+    assert not client.is_alive() and client.error is None, client.error
+    assert client.items == ["RGB", "Alpha", "Normal", "Depth", "Edge", "Curvature"]
+    assert len(client.frames) == 3
+    for image, verify, metrics in client.frames:
+        assert len(image) == 24 * 20 * 3 and len(set(image)) > 1
+        assert verify == str(tmp_path / "scene") and set(metrics) == {"#", "loss"}
+    assert int(state.n_active) > 0 and (tmp_path / "out" / "point_cloud" / "iteration_10"
+                                        ).exists()
