@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, mesh-export and eval
-paths, on one device and over device slots, on one CUDA card; check them.
+"""Drive the PyTorch/CUDA port's serving, training, mesh-export, eval and
+semantic-preprocessing paths, on one device and over device slots, on one
+CUDA card; check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -88,7 +89,21 @@ Phases, each printing its own lines; any failure exits non-zero:
      train.main --gui serving a client connected beforehand; then the
      training step with and without the term, the tower's forward and its
      forward plus backward against their float32 FLOP bounds, and the
-     viewer's round trip per render item.
+     viewer's round trip per render item;
+  9. semantic preprocessing: a scan at DTU's published size (SEM_VIEWS views
+     at SEM_WIDTH x SEM_HEIGHT in DTU's IDR format, cameras.npz with the
+     w2c world_mat_i, camera_mat_i and scale_mat_i; bench.py's cloud as
+     points.ply, coloured by octant; the views K1 renders of it; the same
+     cameras as COLMAP sparse/0) through python -m
+     gaussmart_tpu_torch.semantics.pipeline -t dtu --clean (classical
+     masks) on the card and with --device cpu, held stage by stage (the
+     hull's distances and keep mask, the pixel k-means labels, the
+     projection given the CPU's masks); then train.main --run_segmentation
+     --dataset_type dtu for SEM_ITERS iterations in a temporary working
+     directory (its pipeline subprocess's artifacts bit-equal to the first
+     card run's, the Scene on segmented_point_cloud.ply, the augmentation
+     adding what its rule asks, K1/K2/K5 SEM_ITERS launches each, finite
+     losses), with each stage's time and the CLIs' wall times.
 N_SLOTS slots on one card measure the cost of the two-pass fold, not
 scaling across cards.
 Each path's kernel launch counts are set to 0 just before it runs and read
@@ -185,6 +200,17 @@ DINO_TOKEN_TOL = 1e-4     # the card's tokens (and heatmap) vs the CPU copy's, a
 DINO_GRAD_TOL = 1e-4      # the term's image gradient, card vs CPU, of its max |value|
 VIEWER_ROUNDS = 5         # viewer requests of each render item (the first warms up)
 GUI_ITERS, GUI_FRAMES = 5, 3   # train --gui: iterations, frames asked on the way
+# phase 9: a scan at DTU's published size (49 views at 1600x1200, the IDR
+# camera format) of bench.py's cloud, coloured by region so that its K1
+# renders hold regions for the segmenter; the pipeline on the card against
+# the CPU, then train --run_segmentation on it for SEM_ITERS iterations
+SEM_VIEWS, SEM_WIDTH, SEM_HEIGHT, SEM_FOVX = 49, 1600, 1200, 1.2
+SEM_ITERS = 10
+SEM_LABEL_AGREE = 0.9999  # the card's pixel k-means labels vs the CPU's, pixel share
+SEM_HULL_TOL = 1e-12      # the card's hull distances vs the CPU's, absolute
+SEM_ARTIFACTS = ("point_cloud/raw_pc.ply", "point_cloud/segmented_point_cloud.ply",
+                 "point_cloud/segment_indices.npy", "point_cloud/mask_areas.npy",
+                 "cameras/selected_cameras.npz")
 
 
 def card_line() -> str:
@@ -301,10 +327,10 @@ def scene_params(seed, n, sh_degree):
     }
 
 
-def write_colmap_source(src, cams, images, pts, rgb):
+def write_colmap_source(src, cams, images, pts, rgb, level=6):
     """A COLMAP text scene: one PINHOLE camera (fovx/fovy), the cameras'
-    poses, their uint8 images as PNG, and the point cloud as
-    sparse/0/points3D.ply."""
+    poses, their uint8 images as PNG (zlib `level`), and the point cloud
+    as sparse/0/points3D.ply."""
     from gaussmart_tpu_torch.cameras import fov2focal
     from gaussmart_tpu_torch.io import colmap
     from gaussmart_tpu_torch.io.images import write_png
@@ -322,7 +348,7 @@ def write_colmap_source(src, cams, images, pts, rgb):
         for c in cams})
     store_point_cloud(os.path.join(sparse, "points3D.ply"), pts, rgb)
     for c, img in zip(cams, images):
-        write_png(os.path.join(src, "images", f"{c.image_name}.png"), img)
+        write_png(os.path.join(src, "images", f"{c.image_name}.png"), img, level=level)
 
 
 def write_model_dir(root, seed, n, width, height, n_views):
@@ -1791,6 +1817,265 @@ def time_mesh(ex, geo, walls, evals, card, device):
           f"{plain_s:.2f} s (no weights), {lpips_s:.2f} s (VGG weights)")
 
 
+# --- semantic preprocessing (phase 9) ----------------------------------------------
+
+def dtu_scan_cameras(n_views, width, height):
+    """DTU's layout cut to a grid: n_views cameras on a 7x7 grid of yaw and
+    pitch around the cloud's centre (0, 0, 3.5), each 3.5 from it and
+    looking at it (the middle one at the origin, as bench.py's camera 0)."""
+    from gaussmart_tpu_torch.cameras import Camera, focal2fov
+    side = int(round(np.sqrt(n_views)))
+    focal = (width / 2) / np.tan(SEM_FOVX / 2)
+    centre = np.array([0.0, 0.0, 3.5])
+    cams = []
+    for i in range(n_views):
+        yaw = (i % side - (side - 1) / 2) * 0.08
+        pitch = (i // side - (side - 1) / 2) * 0.06
+        cy, sy, cp, sp = np.cos(yaw), np.sin(yaw), np.cos(pitch), np.sin(pitch)
+        c2w = (np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+               @ np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]]))
+        pos = centre - 3.5 * c2w[:, 2]
+        cams.append(Camera(uid=i, colmap_id=i, image_name=f"{i:03d}", R=c2w,
+                           T=-c2w.T @ pos, fovx=focal2fov(focal, width),
+                           fovy=focal2fov(focal, height), width=width, height=height))
+    return cams, focal
+
+
+def region_colours(pts, rng):
+    """One of 8 colours per octant of the cloud's box, with a little noise."""
+    palette = np.array([[0.85, 0.2, 0.2], [0.2, 0.75, 0.25], [0.2, 0.3, 0.85],
+                        [0.9, 0.8, 0.2], [0.8, 0.3, 0.8], [0.2, 0.8, 0.8],
+                        [0.95, 0.55, 0.15], [0.5, 0.5, 0.5]])
+    region = (pts[:, 0] > 0) + 2 * (pts[:, 1] > 0) + 4 * (pts[:, 2] > 3.5)
+    return np.clip(palette[region] + rng.normal(0, 0.03, (len(pts), 3)), 0, 1)
+
+
+def write_dtu_scan(scan, seed, n, width, height, n_views, device):
+    """The phase-9 scan: cameras.npz in DTU's IDR format (world_mat_i the
+    w2c extrinsic, camera_mat_i the intrinsics, scale_mat_i the identity),
+    points.ply (bench.py's cloud, region colours), the views as K1
+    renders of that cloud (SH 0, opacity 0.95, 3-NN scales) and the same
+    cameras as a COLMAP text model, so that the Scene loads the scan."""
+    import torch
+    from gaussmart_tpu_torch.io.ply import store_point_cloud
+    from gaussmart_tpu_torch.models.gaussians import mean_sq_dist_to_3nn, state_from_numpy
+    from gaussmart_tpu_torch.ops.sh import rgb2sh
+    from gaussmart_tpu_torch.render.api import render
+    rng = np.random.default_rng(seed)
+    pts, _ = bench_points(rng, n)
+    cols = region_colours(pts, rng)
+    q = rng.normal(size=(n, 4))
+    params = {"xyz": pts, "features_dc": rgb2sh(cols[:, None, :]),
+              "features_rest": np.zeros((n, 0, 3)),
+              "scaling": np.log(np.sqrt(np.maximum(mean_sq_dist_to_3nn(pts), 1e-7)))[:, None]
+              .repeat(2, axis=1),
+              "rotation": q / np.linalg.norm(q, axis=1, keepdims=True),
+              "opacity": np.full((n, 1), np.log(0.95 / 0.05))}
+    state = state_from_numpy(params, np.ones(n, bool), np.zeros(n, np.int32), 0, 0, 1.0,
+                             device=device)
+    cams, focal = dtu_scan_cameras(n_views, width, height)
+    bg = torch.zeros(3, device=device)
+
+    def views():
+        with torch.inference_mode():
+            for cam in cams:
+                img = render(cam.params(device), state, bg)["render"]
+                yield (img.clamp(0, 1).permute(1, 2, 0) * 255).round().to(torch.uint8).cpu().numpy()
+
+    rgb = np.round(cols * 255.0)
+    write_colmap_source(str(scan), cams, views(), pts, rgb, level=1)
+    K = np.eye(4)
+    K[:3, :3] = [[focal, 0, width / 2], [0, focal, height / 2], [0, 0, 1]]
+    mats = {}
+    for i, cam in enumerate(cams):
+        w2c = np.eye(4)
+        w2c[:3, :3], w2c[:3, 3] = cam.R.T, cam.T
+        mats.update({f"world_mat_{i}": w2c, f"camera_mat_{i}": K, f"scale_mat_{i}": np.eye(4)})
+    np.savez(os.path.join(scan, "cameras.npz"), **mats)
+    store_point_cloud(os.path.join(scan, "points.ply"), pts, rgb)
+
+
+@contextlib.contextmanager
+def wrapped(owner, name, after):
+    """owner.name replaced by a call that runs it synchronised and timed,
+    then calls after(args, result, seconds)."""
+    import torch
+    orig = getattr(owner, name)
+
+    def call(*a, **kw):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        after(a, out, time.perf_counter() - t0)
+        return out
+    setattr(owner, name, call)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def pipeline_run(scan, out, device):
+    """python -m gaussmart_tpu_torch.semantics.pipeline -s scan -o out -t dtu
+    --clean (classical masks, as no SAM checkpoint is there) on `device`,
+    in this process, with its stages timed and their results kept: the
+    hull's keep mask, each view's k-means labels, and the projection's
+    inputs and outputs."""
+    from gaussmart_tpu_torch.semantics import hull, pipeline, sam_backend
+    rec = {"times": {}, "labels": []}
+
+    def stage(key, keep=None):
+        def after(a, out_, dt):
+            rec["times"][key] = rec["times"].get(key, 0.0) + dt
+            if keep:
+                keep(a, out_)
+        return after
+
+    def projected(a, out_):
+        rec.update(points=a[0], masks=a[1], cameras=a[2], seg=out_[0], areas=out_[1])
+
+    with contextlib.ExitStack() as stack:
+        for owner, name, after in (
+                (pipeline.Pipeline, "select_views",
+                 stage("view selection", lambda a, o: rec.update(selected=o[0]))),
+                (pipeline.Pipeline, "run_segmentation", stage("segmentation")),
+                (sam_backend.ClassicalSegmenter, "labels",
+                 stage("colour k-means", lambda a, o: rec["labels"].append(o))),
+                (pipeline, "filter_point_cloud", stage("hull", lambda a, o: rec.update(keep=o[3]))),
+                (hull, "hull_distances", stage("hull distances",
+                                               lambda a, o: rec.update(hull_d=o))),
+                (pipeline, "project_segments", stage("projection", projected))):
+            stack.enter_context(wrapped(owner, name, after))
+        t0 = time.perf_counter()
+        pipeline.main(["-s", str(scan), "-o", str(out), "-t", "dtu", "--clean",
+                       "--device", str(device)])
+        rec["wall"] = time.perf_counter() - t0
+    return rec
+
+
+def npz_members(path):
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+def artifacts_differ(a, b):
+    """The pipeline artifacts under a/segments and b/segments that differ
+    (an npz by its members: the zip records their write times)."""
+    names = list(SEM_ARTIFACTS) + sorted(
+        "masks/" + f for f in set(os.listdir(os.path.join(a, "segments", "masks")))
+        | set(os.listdir(os.path.join(b, "segments", "masks"))))
+    differ = []
+    for name in names:
+        pa, pb = (os.path.join(r, "segments", name) for r in (a, b))
+        if not (os.path.exists(pa) and os.path.exists(pb)):
+            differ.append(name)
+        elif name.endswith(".npz"):
+            if npz_members(pa) != npz_members(pb):
+                differ.append(name)
+        elif Path(pa).read_bytes() != Path(pb).read_bytes():
+            differ.append(name)
+    return differ
+
+
+def semantics_path(root, seed, device, card):
+    """Phase 9: the pipeline on the DTU-scale scan on the card, held stage by
+    stage against the same pipeline on the CPU; then train.main
+    --run_segmentation -t dtu on it (the pipeline again on the card, in its
+    subprocess: bit-equal to the first card run), counted."""
+    import torch
+    from gaussmart_tpu_torch import scene as scene_mod
+    from gaussmart_tpu_torch.semantics.projection import project_segments
+    scan = os.path.join(root, "dtu_scan")
+    t0 = time.perf_counter()
+    write_dtu_scan(scan, seed, N_SPLATS, SEM_WIDTH, SEM_HEIGHT, SEM_VIEWS, device)
+    print(f"[semantics] scan: {SEM_VIEWS} views at {SEM_WIDTH}x{SEM_HEIGHT} (K1 renders, "
+          f"DTU IDR cameras.npz + COLMAP text), {N_SPLATS} points, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gpu = pipeline_run(scan, os.path.join(root, "card"), device)
+    cpu = pipeline_run(scan, os.path.join(root, "cpu"), "cpu")
+    n_masks = [len(m) for m in gpu["masks"]]
+    # the segments that the Scene's augmentation fills (semantics/augment.py:
+    # at least 5 points, fewer than max(int(sqrt(area) * 0.1), 10)), and the
+    # points it adds to them
+    ids, sizes = np.unique(gpu["seg"][gpu["seg"] >= 0], return_counts=True)
+    median = float(np.median(list(gpu["areas"].values()))) if gpu["areas"] else 0.0
+    short = [max(int(np.sqrt(gpu["areas"].get(int(i), median)) * 0.1), 10) - int(c)
+             for i, c in zip(ids, sizes) if c >= 5]
+    under, to_add = sum(1 for d in short if d > 0), sum(d for d in short if d > 0)
+    print(f"[semantics] selected views {gpu['selected']} (CPU run: {cpu['selected']}); masks "
+          f"per view {n_masks}; points after the hull {int(gpu['keep'].sum())} of "
+          f"{len(gpu['keep'])}; with a segment {int((gpu['seg'] >= 0).sum())} in {len(ids)} "
+          f"segments (points per segment {sizes.min() if len(sizes) else 0}-"
+          f"{sizes.max() if len(sizes) else 0}), {under} under their mask-area target "
+          f"(the augmentation's rule adds {to_add} points); "
+          f"mask areas {len(gpu['areas'])}")
+    keep_equal = np.array_equal(gpu["keep"], cpu["keep"])
+    hull_err = float(np.abs(gpu["hull_d"] - cpu["hull_d"]).max())
+    pixels = sum(a.size for a in gpu["labels"])
+    agree = sum(int((a == b).sum()) for a, b in zip(gpu["labels"], cpu["labels"]))
+    seg, areas = project_segments(cpu["points"], cpu["masks"], cpu["cameras"], "dtu",
+                                  device=device)
+    seg_equal = (np.array_equal(seg, cpu["seg"])
+                 and list(areas.items()) == list(cpu["areas"].items()))
+    whole = artifacts_differ(os.path.join(root, "card"), os.path.join(root, "cpu"))
+    print(f"[semantics] card vs CPU: hull distances max|diff| {hull_err:.3g} (limit "
+          f"{SEM_HULL_TOL}); hull keep mask bit-equal {keep_equal}; pixel k-means "
+          f"labels equal on {agree} of {pixels} pixels ({agree / max(pixels, 1):.6f}, limit "
+          f"{SEM_LABEL_AGREE}); given the CPU's masks, segment_indices and mask_areas equal "
+          f"{seg_equal}; artifacts that differ {whole}")
+    if not (gpu["selected"] == cpu["selected"] and keep_equal and hull_err <= SEM_HULL_TOL
+            and seg_equal
+            and len(gpu["labels"]) == len(cpu["labels"]) == len(gpu["selected"])
+            and agree >= SEM_LABEL_AGREE * pixels and pixels > 0
+            and (gpu["seg"] >= 0).any() and gpu["areas"]):
+        fail("[semantics] card vs CPU check failed")
+
+    work, out = os.path.join(root, "work"), os.path.join(root, "trained_seg")
+    os.makedirs(work)
+    augmented = []
+
+    def after(a, o, dt):
+        augmented.append((len(a[0]), len(o[0])))
+    losses, cwd = [], os.getcwd()
+    os.chdir(work)
+    try:
+        with wrapped(scene_mod, "augment_by_mask_areas", after):
+            state, _, counts, secs = train_cli(
+                scan, out, SEM_ITERS, device, losses,
+                ["--run_segmentation", "--dataset_type", "dtu", "--clean"])
+    finally:
+        os.chdir(cwd)
+    results = os.path.join(work, "identification", "results")
+    picked = (Path(out, "input.ply").read_bytes()
+              == Path(results, "segments", "point_cloud", "segmented_point_cloud.ply").read_bytes())
+    again = artifacts_differ(os.path.join(root, "card"), results)
+    print(f"[semantics] train.main --run_segmentation -t dtu, {SEM_ITERS} iterations in "
+          f"{secs:.2f} s (the pipeline's subprocess included): launches {counts}; the Scene "
+          f"read segmented_point_cloud.ply {picked}; augmentation (points in, out) "
+          f"{augmented} (the rule's {to_add} added); losses first {losses[0]:.5f} last "
+          f"{losses[-1]:.5f}; splats "
+          f"{int(state.n_active)}; the subprocess's artifacts vs the first card run's: "
+          f"differ {again}")
+    if not (only(counts, raster_fwd=SEM_ITERS, raster_bwd=SEM_ITERS, segsum=SEM_ITERS)
+            and picked and len(augmented) == 1 and augmented[0][1] - augmented[0][0] == to_add
+            and len(losses) == SEM_ITERS and np.all(np.isfinite(losses)) and not again):
+        fail("[semantics] train --run_segmentation check failed")
+    for label, rec in ((f"{card}: --device cuda", gpu), (f"{card}: --device cpu", cpu)):
+        t = rec["times"]
+        print(f"[semantics] {label}: pipeline {rec['wall']:.3f} s wall; view selection "
+              f"{t['view selection']:.3f} s; segmentation {t['segmentation']:.3f} s "
+              f"({t['segmentation'] / len(rec['labels']):.3f} s per view, its colour k-means "
+              f"{t['colour k-means'] / len(rec['labels']):.3f} s per view); hull "
+              f"{t['hull']:.3f} s (its distances {t['hull distances']:.3f} s); projection "
+              f"{t['projection']:.3f} s")
+    print(f"[semantics] {card}: train CLI with --run_segmentation {secs:.3f} s wall")
+    return counts
+
+
 # --- timings -------------------------------------------------------------------
 
 def time_ms(fn, frames, warmup=2):
@@ -2500,6 +2785,10 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
         ex_mesh, mesh_geo, mesh_walls, evals = mesh_path(root, args.seed, dev)
     time_mesh(ex_mesh, mesh_geo, mesh_walls, evals, card, dev)
+
+    # 9. semantic preprocessing and train --run_segmentation
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sem_") as root:
+        semantics_path(root, args.seed, dev, card)
 
     def listed(ts):
         return "; ".join(f"{k} {ms:.4f} ms, plain {p:.4f} ms"

@@ -9,8 +9,10 @@ points run on a CUDA device unless the caller asks for the CPU
 It covers serving (``python -m gaussmart_tpu_torch.render_cli -m <model>
 --skip_mesh``), training (``python -m gaussmart_tpu_torch.train -s <scene>
 -m <out>``, with the DINO term) and both over D device slots
-(``--n_devices D``; parallel/), mesh export, evaluation and the live
-viewer.
+(``--n_devices D``; parallel/), mesh export, evaluation, the live
+viewer, the segmentation preprocessing (``python -m
+gaussmart_tpu_torch.semantics.pipeline``, ``train --run_segmentation``)
+and the COLMAP convert CLI (``python -m gaussmart_tpu_torch.convert``).
 Every TPU kernel of those paths is a hand-written CUDA kernel (csrc/): the
 tile compositor forward and backward, their seeded variants for
 Gaussian-sharded rendering, and the sorted segment sum; each has its plain
@@ -23,7 +25,9 @@ Layer map:
   render/     - preprocess, dense compositor, tiled compositor + kernels
   mesh/       - GaussianExtractor, TSDF fusion, marching tetrahedra
   eval/       - metrics CLI, LPIPS, Chamfer, F-score, cull
-  semantics/  - DINO tower and heatmap CLI, segment-aware densification
+  semantics/  - DINO tower and heatmap CLI, segmentation pipeline (camera
+                formats, view clustering, hull, masks, projection),
+                segment-aware densification
   viewer/     - network_gui protocol, viewer CLI, a scripted client
   parallel/   - device slots: data-parallel, row- and Gaussian-sharded
   kernels.py  - nvcc build + ctypes loading of csrc/*.cu

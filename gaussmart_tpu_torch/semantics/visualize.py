@@ -5,9 +5,9 @@ gaussmart_tpu/semantics/visualize.py):
 
 The card's machine has neither OpenCV nor Pillow: images are read and
 written by io/images.py (8-bit PNGs only; the JAX CLI reads any format
-Pillow reads), the upsample of the heatmap is a numpy copy of
-cv2.resize(INTER_LINEAR) and the colour map is OpenCV's turbo table,
-round(trajectory.TURBO * 255).
+Pillow reads), the upsample of the heatmap is io/images.py's copy of
+cv2.resize(INTER_LINEAR), equal to it to the bit, and the colour map is
+OpenCV's turbo table, round(trajectory.TURBO * 255).
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from gaussmart_tpu_torch.io.images import read_png, write_png
+from gaussmart_tpu_torch.io.images import read_png, resize_linear_u8, write_png
 from gaussmart_tpu_torch.runtime import resolve_device, setup
 from gaussmart_tpu_torch.semantics.dino import DinoEncoder
 from gaussmart_tpu_torch.trajectory import TURBO
@@ -42,31 +42,6 @@ def cls_patch_heatmap(encoder: DinoEncoder, image: np.ndarray) -> np.ndarray:
     sim = patches @ cls_t
     sim = (sim - sim.min()) / torch.clamp_min(sim.max() - sim.min(), 1e-9)
     return sim.reshape(g, g).cpu().numpy()
-
-
-def _linear_taps(n_out: int, n_in: int):
-    """Source indices and weights of cv2's INTER_LINEAR along one axis:
-    sample (i + 0.5) * n_in / n_out - 0.5, clamped to the edge pixels."""
-    f = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
-    i0 = np.floor(f).astype(np.int64)
-    frac = f - i0
-    low, high = i0 < 0, i0 >= n_in - 1
-    i0[low], frac[low] = 0, 0.0
-    i0[high], frac[high] = n_in - 1, 0.0
-    return i0, np.minimum(i0 + 1, n_in - 1), frac
-
-
-def resize_linear_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
-    """cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR) of a
-    2-D uint8 image, within one level (OpenCV rounds its weights to 11
-    bits)."""
-    y0, y1, fy = _linear_taps(height, img.shape[0])
-    x0, x1, fx = _linear_taps(width, img.shape[1])
-    src = img.astype(np.float64)
-    top = src[y0][:, x0] * (1 - fx) + src[y0][:, x1] * fx
-    bottom = src[y1][:, x0] * (1 - fx) + src[y1][:, x1] * fx
-    out = top * (1 - fy)[:, None] + bottom * fy[:, None]
-    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
 def overlay_heatmap(image: np.ndarray, heat: np.ndarray,

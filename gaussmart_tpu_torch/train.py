@@ -26,7 +26,12 @@ with no gradient; ``off`` leaves it out. Without encoder weights
 ($GAUSSMART_DINO_WEIGHTS, or the default paths) the term is disabled with
 a message, as in the JAX trainer. ``--gui`` serves the live viewer
 (viewer/protocol.py) once per iteration on ``--ip``/``--port``.
-``--run_segmentation`` (the semantics slice) raises before any work. The
+``--run_segmentation`` first runs the segmentation pipeline
+(``python -m gaussmart_tpu_torch.semantics.pipeline``, semantics/
+pipeline.py) in a subprocess on the scene, writing identification/results/
+in the working directory, where the Scene then finds the segmented cloud
+and its mask areas; it forwards --dataset_type, --skip_camera_clustering,
+--sam2, --clean and --device, and exits 1 if the pipeline fails. The
 binning never drops a (splat, tile) pair, so there is no duplicate budget
 to grow and train_stats.csv's n_dropped column is always 0.
 """
@@ -36,6 +41,8 @@ import copy
 import csv
 import json
 import os
+import subprocess
+import sys
 import time
 from argparse import ArgumentParser
 from random import Random
@@ -450,16 +457,43 @@ def build_parser() -> ArgumentParser:
     return parser
 
 
+def run_segmentation(args):
+    """The segmentation pipeline on args.source_path in a subprocess, its
+    output CWD-relative (where io/dataset.py looks); exits 1 if it fails.
+    PYTHONPATH leads with the port's parent directory, so the module is
+    found from any working directory."""
+    print("\nRunning segmentation process...", flush=True)
+    seg_output = os.path.join("identification", "results")
+    os.makedirs(seg_output, exist_ok=True)
+    cmd = [sys.executable, "-m", "gaussmart_tpu_torch.semantics.pipeline",
+           "-s", args.source_path, "-o", seg_output, "-t", args.dataset_type,
+           "--device", args.device]
+    if args.skip_camera_clustering:
+        cmd.append("--skip_camera_clustering")
+    if args.sam2:
+        cmd.append("--sam2")
+    if args.clean:
+        cmd.append("--clean")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    try:
+        subprocess.run(cmd, check=True, env=env)
+        print("Segmentation completed successfully!")
+    except subprocess.CalledProcessError as e:
+        print(f"Segmentation failed with error: {e}")
+        sys.exit(1)
+
+
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.run_segmentation:
-        raise NotImplementedError("--run_segmentation comes with the semantics slice "
-                                  "of the port")
-    setup()
-    device = resolve_device(args.device)
     args.save_iterations.append(args.iterations)
     print("Optimizing " + args.model_path)
+    if args.run_segmentation:
+        run_segmentation(args)
+    setup()
+    device = resolve_device(args.device)
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
 

@@ -129,12 +129,29 @@ def test_port_imports_no_jax(tmp_path):
     export), the metrics CLI, the train CLI (each also over 2 device slots:
     --shard_mode gaussian; dp and mp, with the DINO term on the random
     tower), the DINO heatmap CLI and the viewer CLI answering a scripted
-    client, leaves neither jax nor gaussmart_tpu in sys.modules, nor
-    transformers, PIL, cv2 or matplotlib, which the card's machine lacks."""
+    client, the segmentation pipeline (classical masks) and convert --help,
+    leaves neither jax nor gaussmart_tpu in sys.modules, nor transformers,
+    PIL, cv2, sklearn or matplotlib, which the card's machine lacks."""
     model, cfg = _model_dir(str(tmp_path), n=40)
     src, out = cfg["source_path"], str(tmp_path / "trained")
     png, heat = str(tmp_path / "in.png"), str(tmp_path / "heat.png")
-    Image.fromarray((np.random.default_rng(0).random((30, 40, 3)) * 255).astype(np.uint8)).save(png)
+    rng = np.random.default_rng(0)
+    Image.fromarray((rng.random((30, 40, 3)) * 255).astype(np.uint8)).save(png)
+    # a DTU-format scan for the segmentation pipeline
+    scan, seg_out = tmp_path / "scan", str(tmp_path / "seg")
+    os.makedirs(scan / "images")
+    K = np.eye(4)
+    K[:3, :3] = [[30.0, 0, 20], [0, 30.0, 15], [0, 0, 1]]
+    mats = {}
+    for i in range(5):
+        w2c = np.eye(4)
+        w2c[:3, 3] = [0.2 * i, 0, 3.0]
+        mats.update({f"world_mat_{i}": w2c, f"camera_mat_{i}": K, f"scale_mat_{i}": np.eye(4)})
+        Image.fromarray((rng.random((30, 40, 3)) * 255).astype(np.uint8)).save(
+            scan / "images" / f"{i:03d}.png")
+    np.savez(scan / "cameras.npz", **mats)
+    store_point_cloud(str(scan / "points.ply"), rng.normal(scale=0.3, size=(50, 3)),
+                      rng.integers(0, 255, (50, 3)).astype(np.float64))
     code = f"""
 import importlib, os, pkgutil, sys
 import numpy as np
@@ -173,8 +190,17 @@ serve.NetworkGUI = ConnectedGUI
 serve.main(["-m", {model!r}, "--port", "0", "--device", "cpu", "--max_frames", "2"])
 clients[0].join(30)
 assert clients[0].error is None and [len(f[0]) for f in clients[0].frames] == [32 * 24 * 3] * 2
+from gaussmart_tpu_torch.semantics import pipeline
+pipeline.main(["-s", {str(scan)!r}, "-o", {seg_out!r}, "-t", "dtu", "--clean",
+               "--mask_backend", "classical", "--device", "cpu"])
+from gaussmart_tpu_torch import convert
+try:
+    convert.main(["--help"])
+except SystemExit as e:
+    assert e.code == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
-    "jax", "jaxlib", "gaussmart_tpu", "transformers", "PIL", "cv2", "matplotlib"))
+    "jax", "jaxlib", "gaussmart_tpu", "transformers", "PIL", "cv2", "sklearn",
+    "matplotlib"))
 assert not bad, bad
 print("CLEAN")
 """
@@ -193,6 +219,7 @@ print("CLEAN")
         assert os.path.exists(os.path.join(o, "point_cloud", "iteration_3", "point_cloud.ply"))
         assert os.path.exists(os.path.join(o, "eval_3.json"))
     assert _png(heat).shape == (30, 40, 3)
+    assert os.path.exists(os.path.join(seg_out, "segments", "point_cloud", "segment_indices.npy"))
 
 
 def test_cli_refuses_what_this_slice_does_not_serve(tmp_path, monkeypatch):

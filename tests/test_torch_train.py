@@ -452,15 +452,50 @@ def _blender_scene(src, rng):
                       rng.integers(0, 255, (64, 3)).astype(np.float64))
 
 
+def _dtu_segmentation_scene(src, rng):
+    """A DTU-format scan the segmentation pipeline reads (cameras.npz,
+    points.ply, PNG views of two colours) with the same 4 views as a
+    COLMAP text model for the Scene."""
+    from gaussmart_tpu.io.colmap import (ColmapCamera, ColmapImage, rotmat2qvec,
+                                         write_cameras_text, write_images_text)
+    sparse = src / "sparse" / "0"
+    os.makedirs(sparse)
+    os.makedirs(src / "images")
+    K = np.eye(4)
+    K[:3, :3] = [[30.0, 0, 16], [0, 30.0, 12], [0, 0, 1]]
+    mats, imgs = {}, {}
+    for i in range(4):
+        c, s = np.cos(0.3 * i), np.sin(0.3 * i)
+        w2c = np.eye(4)
+        w2c[:3, :3] = [[c, 0, -s], [0, 1, 0], [s, 0, c]]
+        w2c[:3, 3] = [0, 0, 3.0]
+        mats.update({f"world_mat_{i}": w2c, f"camera_mat_{i}": K, f"scale_mat_{i}": np.eye(4)})
+        imgs[i + 1] = ColmapImage(i + 1, rotmat2qvec(w2c[:3, :3]), w2c[:3, 3], 1, f"{i:03d}.png")
+        img = np.zeros((24, 32, 3), np.uint8)
+        img[:9] = [220, 40, 40]
+        img[9:] = [40, 40, 220]
+        Image.fromarray(img).save(src / "images" / f"{i:03d}.png")
+    np.savez(src / "cameras.npz", **mats)
+    write_cameras_text(str(sparse / "cameras.txt"),
+                       {1: ColmapCamera(1, "PINHOLE", 32, 24, np.array([30.0, 30.0, 16, 12]))})
+    write_images_text(str(sparse / "images.txt"), imgs)
+    pts, cols = rng.normal(scale=0.3, size=(64, 3)), rng.integers(0, 255, (64, 3)).astype(float)
+    store_point_cloud(str(src / "points.ply"), pts, cols)
+    store_point_cloud(str(sparse / "points3D.ply"), pts, cols)
+
+
 def _header(path):
     with open(path) as f:
         return next(csv.reader(f))
 
 
-def test_train_cli_on_cpu_writes_the_jax_outputs(tmp_path, rng):
+def test_train_cli_on_cpu_writes_the_jax_outputs(tmp_path, rng, monkeypatch):
     """train.main on a tiny Blender scene (--device cpu): the snapshot,
     checkpoint, eval JSON and both CSV logs under the JAX trainer's names
-    and columns; then a resume from the checkpoint starts at iteration 31."""
+    and columns; then a resume from the checkpoint starts at iteration 31;
+    then --run_segmentation on a DTU scan from a temporary working
+    directory: the pipeline's artifacts under identification/results, and
+    training on the segmented cloud."""
     _blender_scene(tmp_path / "scene", rng)
     out = tmp_path / "out"
     common = ["-s", str(tmp_path / "scene"), "-m", str(out), "-w", "--sh_degree", "1",
@@ -493,8 +528,20 @@ def test_train_cli_on_cpu_writes_the_jax_outputs(tmp_path, rng):
     assert (out / "point_cloud" / "iteration_32" / "point_cloud.ply").exists()
     with open(out / "dino_loss_log.csv") as f:
         assert [int(r["iteration"]) for r in csv.DictReader(f)] == [32]
-    with pytest.raises(NotImplementedError, match="semantics"):
-        ttrain.main(common + ["--run_segmentation"])
+    _dtu_segmentation_scene(tmp_path / "dtu", rng)
+    os.makedirs(tmp_path / "work")
+    monkeypatch.chdir(tmp_path / "work")
+    state3, _ = ttrain.main(["-s", str(tmp_path / "dtu"), "-m", str(tmp_path / "seg"),
+                             "--run_segmentation", "--dataset_type", "dtu", "--iterations", "2",
+                             "--test_iterations", "99", "--sh_degree", "1", "--capacity", "256",
+                             "--device", "cpu", "--no_tensorboard", "--quiet",
+                             "--dino_mode", "off"])
+    results = tmp_path / "work" / "identification" / "results" / "segments"
+    assert len(os.listdir(results / "masks")) >= 1
+    segments = np.load(results / "point_cloud" / "segment_indices.npy")
+    assert (segments >= 0).any()
+    assert int(state3.n_active) >= len(segments)
+    assert (tmp_path / "seg" / "point_cloud" / "iteration_2" / "point_cloud.ply").exists()
 
 
 def _short_run(src, out, *extra):
