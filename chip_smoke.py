@@ -8,7 +8,8 @@ CUDA card; check them.
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build every kernel from csrc/ with nvcc (sm_90a), one nvcc process per
-     source, all started together, each timed; registers, shared memory
+     source, and the host image codec (csrc/imagecodec.cpp) with g++, all
+     started together, each timed; registers, shared memory
      and spill bytes of every kernel variant from ptxas (a variant that
      spills fails);
   3. each kernel against its plain PyTorch version on the same inputs:
@@ -103,7 +104,22 @@ Phases, each printing its own lines; any failure exits non-zero:
      directory (its pipeline subprocess's artifacts bit-equal to the first
      card run's, the Scene on segmented_point_cloud.ply, the augmentation
      adding what its rule asks, K1/K2/K5 SEM_ITERS launches each, finite
-     losses), with each stage's time and the CLIs' wall times.
+     losses), with each stage's time and the CLIs' wall times;
+ 10. JPEG photos: each committed fixture of tests/torch_data/jpeg decoded
+     to the sha256 Pillow gave, sized as Pillow sizes it, its sources
+     encoded to the sha256 of Pillow's files, the orientation-6 photo
+     turned as cv2 turns it, the CMYK one refused, textured_photo at
+     5187x3361 encoded (quality 95) and decoded to Pillow's digests; then
+     a scene in Mip-NeRF 360's outdoor layout: JPEG_VIEWS K1 renders of
+     bench.py's cloud at garden's 5187x3361 written by write_jpeg
+     (quality 75, each decoded within JPEG_MIN_PSNR of its render),
+     convert.resize_copies' images_2/4/8, train.main -i images_4
+     (1296x840) for JPEG_ITERS iterations (K1/K2/K5 counted, finite
+     losses, each loaded camera equal to read_jpeg + _resize_u8 of its
+     file), one load of the full-size photos under the 1600-px cap
+     (1600x1036); the host codec's times (decode per view and megapixel
+     and encode, on the renders and on high-entropy copies of them at
+     quality 95; resize, the scene's loads, read_png on the NeRF-size PNG).
 N_SLOTS slots on one card measure the cost of the two-pass fold, not
 scaling across cards.
 Each path's kernel launch counts are set to 0 just before it runs and read
@@ -116,6 +132,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import csv
+import hashlib
 import json
 import os
 import re
@@ -213,6 +230,51 @@ SEM_ARTIFACTS = ("point_cloud/raw_pc.ply", "point_cloud/segmented_point_cloud.pl
                  "cameras/selected_cameras.npz")
 
 
+# phase 10: JPEG photos. The committed fixtures against the digests Pillow
+# gave (tests/torch_data/jpeg/digests.json); then a scene in Mip-NeRF 360's
+# outdoor layout: JPEG_VIEWS photos at garden's 5187x3361 (K1 renders of
+# bench.py's cloud, written by write_jpeg at quality 75), convert's
+# images_2/4/8, train -i images_4 (1296x840, as the 3DGS and 2DGS scripts
+# train the outdoor scenes) for JPEG_ITERS iterations, and one load of the
+# full-size photos under the 1600-px cap
+JPEG_VIEWS, JPEG_WIDTH, JPEG_HEIGHT, JPEG_FACTOR, JPEG_ITERS = 6, 5187, 3361, 4, 10
+JPEG_CAPPED = (1600, 1036)     # compute_resolution(5187, 3361, -1)
+JPEG_MIN_PSNR = 45.0           # a q75 photo decoded vs the render it was encoded from, dB
+JPEG_TEXTURED_QUALITY = 95     # the high-entropy case: noise_texture added, quality 95
+JPEG_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_data",
+                         "jpeg")
+
+
+def noise_texture(h: int, w: int) -> np.ndarray:
+    """int32 [h, w, 3] noise of standard deviation ~6.5 from an integer
+    hash of each pixel: the same values from any numpy on any machine (no
+    random generator, no floating point)."""
+    v = np.arange(h * w, dtype=np.uint32).reshape(h, w)
+    chans = []
+    for salt in (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D):
+        u = v ^ np.uint32(salt)
+        u *= np.uint32(0x2C1B3C6D)
+        u ^= u >> np.uint32(15)
+        u *= np.uint32(0x297A2D39)
+        u ^= u >> np.uint32(13)
+        tri = (u & np.uint32(0xFF)).astype(np.int32) + (u >> np.uint32(24)).astype(np.int32)
+        chans.append((tri - 255) // 16)
+    return np.stack(chans, -1)
+
+
+def textured_photo(h: int, w: int) -> np.ndarray:
+    """uint8 [h, w, 3]: colour ramps, a darker disc and noise_texture, in
+    integer arithmetic. At JPEG_WIDTH x JPEG_HEIGHT it is the large
+    fixture whose Pillow digests (q95 file, decode) digests.json holds."""
+    y = np.arange(h, dtype=np.int32)[:, None]
+    x = np.arange(w, dtype=np.int32)[None, :]
+    base = np.stack(np.broadcast_arrays(40 + 175 * x // w, 40 + 175 * y // h,
+                                        40 + 175 * (x + y) // (w + h)), -1)
+    disc = (2 * x - w) ** 2 + (2 * y - h) ** 2 < (2 * min(h, w) // 3) ** 2
+    base = np.where(disc[..., None], base // 2, base)
+    return np.clip(base + noise_texture(h, w), 0, 255).astype(np.uint8)
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -233,8 +295,9 @@ def fail(msg):
 
 def build_all():
     """Unlink and rebuild every kernel from the checkout's sources, one nvcc
-    process per source, all at once."""
+    process per source, and the host image codec with g++, all at once."""
     from gaussmart_tpu_torch import kernels
+    from gaussmart_tpu_torch.io import jpeg
 
     def one(name):
         kernels.library_path(name).unlink(missing_ok=True)
@@ -242,7 +305,14 @@ def build_all():
         log = kernels.build(name)
         return name, time.perf_counter() - t0, log
 
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    def codec():
+        kernels.cxx_library_path(jpeg.SRC, "imagecodec").unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        kernels.build_cxx(jpeg.SRC, "imagecodec")
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        host = pool.submit(codec)
         for name, dt, log in pool.map(one, SOURCES):
             print(f"[build] {name} built with nvcc {' '.join(kernels.NVCC_FLAGS)} "
                   f"in {dt:.2f} s")
@@ -251,6 +321,8 @@ def build_all():
                       f"shared memory, spill stores + loads {spills} bytes")
                 if spills:
                     fail(f"[build] {kernel} spills registers")
+        print(f"[build] imagecodec (the host image codec, csrc/imagecodec.cpp) built with "
+              f"g++ {' '.join(kernels.CXX_FLAGS)} in {host.result():.2f} s")
 
 
 def ptxas_report(log):
@@ -273,7 +345,7 @@ def ptxas_report(log):
 
 # --- scenes ---------------------------------------------------------------
 
-def bench_cameras(n_views, width, height):
+def bench_cameras(n_views, width, height, fovy=FOVY):
     """bench.py's camera poses (rotation about y by 0.1 rad steps, 0.1
     translation steps), mirrored to the other side for views 4..7."""
     from gaussmart_tpu_torch.cameras import Camera
@@ -284,7 +356,7 @@ def bench_cameras(n_views, width, height):
         R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
         cams.append(Camera(uid=i, colmap_id=i, image_name=f"c{i:03d}", R=R,
                            T=np.array([0.1 * k, 0.0, 0.0]), fovx=FOVX,
-                           fovy=FOVY, width=width, height=height))
+                           fovy=fovy, width=width, height=height))
     return cams
 
 
@@ -327,10 +399,10 @@ def scene_params(seed, n, sh_degree):
     }
 
 
-def write_colmap_source(src, cams, images, pts, rgb, level=6):
+def write_colmap_source(src, cams, images, pts, rgb, level=6, suffix=".png"):
     """A COLMAP text scene: one PINHOLE camera (fovx/fovy), the cameras'
-    poses, their uint8 images as PNG (zlib `level`), and the point cloud
-    as sparse/0/points3D.ply."""
+    poses (their images named <image_name><suffix>), their uint8 images as
+    PNG (zlib `level`), and the point cloud as sparse/0/points3D.ply."""
     from gaussmart_tpu_torch.cameras import fov2focal
     from gaussmart_tpu_torch.io import colmap
     from gaussmart_tpu_torch.io.images import write_png
@@ -344,7 +416,7 @@ def write_colmap_source(src, cams, images, pts, rgb, level=6):
             width / 2, height / 2]))})
     colmap.write_images_text(os.path.join(sparse, "images.txt"), {
         c.uid + 1: colmap.ColmapImage(c.uid + 1, colmap.rotmat2qvec(c.R.T),
-                                      np.asarray(c.T), 1, f"{c.image_name}.png")
+                                      np.asarray(c.T), 1, f"{c.image_name}{suffix}")
         for c in cams})
     store_point_cloud(os.path.join(sparse, "points3D.ply"), pts, rgb)
     for c, img in zip(cams, images):
@@ -1850,17 +1922,11 @@ def region_colours(pts, rng):
     return np.clip(palette[region] + rng.normal(0, 0.03, (len(pts), 3)), 0, 1)
 
 
-def write_dtu_scan(scan, seed, n, width, height, n_views, device):
-    """The phase-9 scan: cameras.npz in DTU's IDR format (world_mat_i the
-    w2c extrinsic, camera_mat_i the intrinsics, scale_mat_i the identity),
-    points.ply (bench.py's cloud, region colours), the views as K1
-    renders of that cloud (SH 0, opacity 0.95, 3-NN scales) and the same
-    cameras as a COLMAP text model, so that the Scene loads the scan."""
-    import torch
-    from gaussmart_tpu_torch.io.ply import store_point_cloud
+def region_cloud(seed, n, device):
+    """bench.py's cloud coloured by region as splats (SH 0, opacity 0.95,
+    3-NN scales): (state, points, 8-bit colours)."""
     from gaussmart_tpu_torch.models.gaussians import mean_sq_dist_to_3nn, state_from_numpy
     from gaussmart_tpu_torch.ops.sh import rgb2sh
-    from gaussmart_tpu_torch.render.api import render
     rng = np.random.default_rng(seed)
     pts, _ = bench_points(rng, n)
     cols = region_colours(pts, rng)
@@ -1873,17 +1939,30 @@ def write_dtu_scan(scan, seed, n, width, height, n_views, device):
               "opacity": np.full((n, 1), np.log(0.95 / 0.05))}
     state = state_from_numpy(params, np.ones(n, bool), np.zeros(n, np.int32), 0, 0, 1.0,
                              device=device)
-    cams, focal = dtu_scan_cameras(n_views, width, height)
+    return state, pts, np.round(cols * 255.0)
+
+
+def render_views(state, cams, device):
+    """K1 renders of `state` from each camera, as uint8 [H, W, 3] arrays."""
+    import torch
+    from gaussmart_tpu_torch.render.api import render
     bg = torch.zeros(3, device=device)
+    with torch.inference_mode():
+        for cam in cams:
+            img = render(cam.params(device), state, bg)["render"]
+            yield (img.clamp(0, 1).permute(1, 2, 0) * 255).round().to(torch.uint8).cpu().numpy()
 
-    def views():
-        with torch.inference_mode():
-            for cam in cams:
-                img = render(cam.params(device), state, bg)["render"]
-                yield (img.clamp(0, 1).permute(1, 2, 0) * 255).round().to(torch.uint8).cpu().numpy()
 
-    rgb = np.round(cols * 255.0)
-    write_colmap_source(str(scan), cams, views(), pts, rgb, level=1)
+def write_dtu_scan(scan, seed, n, width, height, n_views, device):
+    """The phase-9 scan: cameras.npz in DTU's IDR format (world_mat_i the
+    w2c extrinsic, camera_mat_i the intrinsics, scale_mat_i the identity),
+    points.ply (bench.py's cloud, region colours), the views as K1
+    renders of that cloud (SH 0, opacity 0.95, 3-NN scales) and the same
+    cameras as a COLMAP text model, so that the Scene loads the scan."""
+    from gaussmart_tpu_torch.io.ply import store_point_cloud
+    state, pts, rgb = region_cloud(seed, n, device)
+    cams, focal = dtu_scan_cameras(n_views, width, height)
+    write_colmap_source(str(scan), cams, render_views(state, cams, device), pts, rgb, level=1)
     K = np.eye(4)
     K[:3, :3] = [[focal, 0, width / 2], [0, focal, height / 2], [0, 0, 1]]
     mats = {}
@@ -2073,6 +2152,224 @@ def semantics_path(root, seed, device, card):
               f"{t['hull']:.3f} s (its distances {t['hull distances']:.3f} s); projection "
               f"{t['projection']:.3f} s")
     print(f"[semantics] {card}: train CLI with --run_segmentation {secs:.3f} s wall")
+    return counts
+
+
+def sha256_of(a) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def host_ms(fn, frames, warmup=1):
+    """Median milliseconds per call of host work, by the wall clock."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def jpeg_fixtures():
+    """The committed fixtures: each decoded to Pillow's digest, sized as
+    Pillow sizes it, each source encoded to the digest of Pillow's file,
+    the orientation-6 photo turned as cv2 turns it, the CMYK one refused;
+    textured_photo at 5187x3361 encoded and decoded to Pillow's digests.
+    Returns read_png's time on the Pillow-written NeRF-size PNG."""
+    from gaussmart_tpu_torch.io import jpeg
+    from gaussmart_tpu_torch.io.images import image_size, read_image, read_png
+    with open(os.path.join(JPEG_DATA, "digests.json")) as f:
+        digests = json.load(f)
+    bad, lines = [], []
+    for name, want in sorted(digests["decoded"].items()):
+        path = os.path.join(JPEG_DATA, name)
+        size_ok = list(image_size(path)) == want["size"]
+        if "sha256" in want:
+            got = read_image(path)
+            ok = list(got.shape) == want["shape"] and sha256_of(got) == want["sha256"]
+            lines.append(f"{name} {'equal' if ok else 'DIFFERENT'}")
+        else:
+            try:
+                read_image(path)
+                ok = False
+            except ValueError as e:
+                ok = "CMYK" in str(e)
+            lines.append(f"{name} refused {ok}")
+        lines[-1] += "" if size_ok else " (size DIFFERENT)"
+        if not (ok and size_ok):
+            bad.append(name)
+    print(f"[jpeg] fixtures decoded against Pillow's digests, sizes against Pillow's: "
+          + "; ".join(lines))
+    want = digests["cv2_upright"]["orient6.jpg"]
+    up = read_image(os.path.join(JPEG_DATA, "orient6.jpg"), exif_orientation=True)
+    up_ok = list(up.shape) == want["shape"] and sha256_of(up) == want["sha256"]
+    enc = []
+    for name, by_q in sorted(digests["encoded"].items()):
+        img = read_image(os.path.join(JPEG_DATA, name))
+        for q, digest in sorted(by_q.items(), key=lambda kv: int(kv[0])):
+            ok = hashlib.sha256(jpeg.encode_jpeg(img, int(q))).hexdigest() == digest
+            enc.append(f"{name} q{q} {'equal' if ok else 'DIFFERENT'}")
+            if not ok:
+                bad.append(f"{name} q{q}")
+    print(f"[jpeg] orient6.jpg turned upright against cv2.imread's digest: "
+          f"{'equal' if up_ok else 'DIFFERENT'}; write_jpeg against Pillow's files: "
+          + "; ".join(enc))
+    want = digests["textured"]
+    (w, h), q = want["size"], want["quality"]
+    data = jpeg.encode_jpeg(textured_photo(h, w), q)
+    tex_ok = (hashlib.sha256(data).hexdigest() == want["encoded"],
+              sha256_of(jpeg.decode_jpeg(data)) == want["decoded"])
+    print(f"[jpeg] textured_photo {w}x{h} at quality {q} ({8 * len(data) / (w * h):.3f} "
+          f"bits per pixel) against Pillow's digests: file "
+          f"{'equal' if tex_ok[0] else 'DIFFERENT'}, decode {'equal' if tex_ok[1] else 'DIFFERENT'}")
+    if not all(tex_ok):
+        bad.append("textured")
+    png = os.path.join(JPEG_DATA, "nerf_800.png")
+    png_ok = sha256_of(read_png(png)) == digests["decoded"]["nerf_800.png"]["sha256"]
+    png_ms = host_ms(lambda: read_png(png), 5)
+    if bad or not up_ok or not png_ok:
+        fail(f"[jpeg] fixtures differ from Pillow's digests: {bad}, upright {up_ok}, "
+             f"nerf_800.png {png_ok}")
+    return png_ms
+
+
+def jpeg_path(root, seed, device, card):
+    """Phase 10: the fixtures, then the Mip-NeRF-360-layout JPEG scene:
+    written, resized by convert, trained from images_4 (counted), loaded
+    at full size under the cap; with the host codec's times."""
+    from gaussmart_tpu_torch import convert
+    from gaussmart_tpu_torch import scene as scene_mod
+    from gaussmart_tpu_torch.cameras import focal2fov, fov2focal
+    from gaussmart_tpu_torch.io import dataset, jpeg
+    from gaussmart_tpu_torch.io.images import image_size
+    png_ms = jpeg_fixtures()
+
+    scene = os.path.join(root, "garden_layout")
+    state, pts, rgb = region_cloud(seed, N_SPLATS, device)
+    fovy = focal2fov(fov2focal(FOVX, JPEG_WIDTH), JPEG_HEIGHT)
+    cams = bench_cameras(JPEG_VIEWS, JPEG_WIDTH, JPEG_HEIGHT, fovy=fovy)
+    for c in cams:
+        c.image_name = f"DSC{8000 + c.uid:05d}"
+    write_colmap_source(scene, cams, [], pts, rgb, suffix=".JPG")
+    os.makedirs(os.path.join(scene, "images"))
+    noise = noise_texture(JPEG_HEIGHT, JPEG_WIDTH)
+    t0 = time.perf_counter()
+    enc_s, psnrs, bits = [], [], []
+    tex_enc, tex_dec, tex_bits = [], [], []      # the high-entropy case, timed only
+    for cam, img in zip(cams, render_views(state, cams, device)):
+        t1 = time.perf_counter()
+        data = jpeg.encode_jpeg(img)
+        enc_s.append(time.perf_counter() - t1)
+        bits.append(8 * len(data))
+        with open(os.path.join(scene, "images", f"{cam.image_name}.JPG"), "wb") as f:
+            f.write(data)
+        err = jpeg.read_jpeg(data).astype(np.float64) - img
+        psnrs.append(float(10 * np.log10(255.0 ** 2 / max(np.mean(err ** 2), 1e-12))))
+        tex = np.clip(img + noise, 0, 255).astype(np.uint8)
+        t1 = time.perf_counter()
+        data = jpeg.encode_jpeg(tex, JPEG_TEXTURED_QUALITY)
+        tex_enc.append(time.perf_counter() - t1)
+        tex_bits.append(8 * len(data))
+        for _ in range(2):
+            t1 = time.perf_counter()
+            jpeg.decode_jpeg(data)
+            tex_dec.append(time.perf_counter() - t1)
+    px = JPEG_WIDTH * JPEG_HEIGHT
+    print(f"[jpeg] scene: {JPEG_VIEWS} K1 renders of {N_SPLATS} splats at "
+          f"{JPEG_WIDTH}x{JPEG_HEIGHT} (Mip-NeRF 360 garden's size), written by write_jpeg "
+          f"(quality 75, 4:2:0, {np.mean(bits) / px:.3f} bits per pixel) in "
+          f"{time.perf_counter() - t0:.1f} s with the high-entropy copies; decoded vs "
+          f"rendered PSNR {min(psnrs):.2f}-{max(psnrs):.2f} dB (limit {JPEG_MIN_PSNR})")
+    t0 = time.perf_counter()
+    convert.resize_copies(scene)
+    resize_s = time.perf_counter() - t0
+    sizes = {f: sorted({image_size(os.path.join(scene, f"images_{f}", n))
+                        for n in os.listdir(os.path.join(scene, f"images_{f}"))})
+             for f in (2, 4, 8)}
+    want = {f: [(JPEG_WIDTH // f, JPEG_HEIGHT // f)] for f in (2, 4, 8)}
+    print(f"[jpeg] convert.resize_copies: images_2/4/8 of {JPEG_VIEWS} photos in "
+          f"{resize_s:.3f} s; sizes {sizes} (expected {want})")
+    if sizes != want or min(psnrs) < JPEG_MIN_PSNR:
+        fail("[jpeg] scene or resize check failed")
+
+    loaded = []
+
+    def after(a, cam, dt):
+        loaded.append((a[0].image_path, cam, dt))
+    losses = []
+    folder = f"images_{JPEG_FACTOR}"
+    with wrapped(scene_mod, "load_camera", after):
+        state_t, _, counts, secs = train_cli(
+            scene, os.path.join(root, "trained_jpeg"), JPEG_ITERS, device, losses,
+            ["-i", folder, "--test_iterations", str(JPEG_ITERS)])
+    load_s = sum(dt for _, _, dt in loaded)
+    mismatched = []
+    for path, cam, _ in loaded:
+        raw = jpeg.read_jpeg(path)
+        w, h = dataset.compute_resolution(raw.shape[1], raw.shape[0], -1)
+        ref = dataset._resize_u8(raw, w, h).astype(np.float32).transpose(2, 0, 1) / 255.0
+        if not (os.path.dirname(path).endswith(folder) and np.array_equal(cam.image, ref)
+                and (cam.width, cam.height) == (JPEG_WIDTH // JPEG_FACTOR,
+                                                JPEG_HEIGHT // JPEG_FACTOR)):
+            mismatched.append(path)
+    print(f"[jpeg] train.main -s <scene> -i {folder}, {JPEG_ITERS} iterations in {secs:.2f} s: "
+          f"launches {counts}; losses first {losses[0]:.5f} last {losses[-1]:.5f}; splats "
+          f"{int(state_t.n_active)}; {len(loaded)} cameras loaded at "
+          f"{JPEG_WIDTH // JPEG_FACTOR}x{JPEG_HEIGHT // JPEG_FACTOR} in {load_s:.3f} s, "
+          f"each equal to read_jpeg + _resize_u8 of its file: {not mismatched}")
+    if not (only(counts, raster_fwd=JPEG_ITERS + EVAL_RENDERS, raster_bwd=JPEG_ITERS,
+                 segsum=JPEG_ITERS)
+            and len(losses) == JPEG_ITERS and np.all(np.isfinite(losses))
+            and len(loaded) == JPEG_VIEWS and not mismatched):
+        fail("[jpeg] training check failed")
+
+    t0 = time.perf_counter()
+    info = dataset.detect_and_read(scene)
+    full = [dataset.load_camera(c) for c in info.train_cameras]
+    full_s = time.perf_counter() - t0
+    capped = sorted({(c.width, c.height) for c in full})
+    raw = jpeg.read_jpeg(info.train_cameras[0].image_path)
+    ref = dataset._resize_u8(raw, *JPEG_CAPPED).astype(np.float32).transpose(2, 0, 1) / 255
+    print(f"[jpeg] the full-size photos loaded without -i (resolution -1): sizes {capped} "
+          f"(the 1600-px cap gives {JPEG_CAPPED}); the first equal to read_jpeg + "
+          f"_resize_u8 {np.array_equal(full[0].image, ref)}; {full_s:.3f} s for "
+          f"{len(full)} views")
+    if capped != [JPEG_CAPPED] or not np.array_equal(full[0].image, ref):
+        fail("[jpeg] auto-cap check failed")
+
+    big = [c.image_path for c in info.train_cameras]
+    small = [os.path.join(scene, folder, os.path.basename(p)) for p in big]
+    dec = {}
+    for label, paths, (w, h) in (("full", big, (JPEG_WIDTH, JPEG_HEIGHT)),
+                                 (folder, small, (JPEG_WIDTH // JPEG_FACTOR,
+                                                  JPEG_HEIGHT // JPEG_FACTOR))):
+        datas = []
+        for p in paths:
+            with open(p, "rb") as f:
+                datas.append(f.read())
+        per = []
+        for data in datas + datas:
+            t0 = time.perf_counter()
+            jpeg.decode_jpeg(data)
+            per.append(time.perf_counter() - t0)
+        ms = 1e3 * float(np.median(per))
+        dec[label] = (w, h, ms, ms / (w * h / 1e6))
+    enc_ms = 1e3 * float(np.median(enc_s))
+    tex_dec_ms = 1e3 * float(np.median(tex_dec))
+    print(f"[time] {card}: host JPEG codec (one CPU thread of the card's machine), median "
+          f"over {JPEG_VIEWS} views x 2: the scene's low-entropy renders at quality 75 "
+          f"({np.mean(bits) / px:.3f} bits per pixel): decode "
+          + "; ".join(f"{w}x{h} {ms:.2f} ms per view ({mp:.3f} ms per megapixel)"
+                      for w, h, ms, mp in dec.values())
+          + f"; encode {JPEG_WIDTH}x{JPEG_HEIGHT} {enc_ms:.2f} ms per view; high-entropy "
+          f"(render + noise_texture, quality {JPEG_TEXTURED_QUALITY}, "
+          f"{np.mean(tex_bits) / px:.3f} bits per pixel) {JPEG_WIDTH}x{JPEG_HEIGHT}: decode "
+          f"{tex_dec_ms:.2f} ms per view ({tex_dec_ms / (px / 1e6):.3f} ms per megapixel), "
+          f"encode {1e3 * float(np.median(tex_enc)):.2f} ms per view; convert "
+          f"resize_copies {resize_s:.3f} s ({JPEG_VIEWS} photos to images_2/4/8); scene load "
+          f"-i {folder} {load_s:.3f} s, full size under the cap {full_s:.3f} s; read_png "
+          f"nerf_800.png (Pillow-written 800x800 RGBA) {png_ms:.2f} ms")
     return counts
 
 
@@ -2789,6 +3086,10 @@ def main(argv=None):
     # 9. semantic preprocessing and train --run_segmentation
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sem_") as root:
         semantics_path(root, args.seed, dev, card)
+
+    # 10. JPEG photos: the codec against Pillow's digests, the 360-layout scene
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_jpeg_") as root:
+        jpeg_path(root, args.seed, dev, card)
 
     def listed(ts):
         return "; ".join(f"{k} {ms:.4f} ms, plain {p:.4f} ms"

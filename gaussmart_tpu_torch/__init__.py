@@ -16,11 +16,16 @@ and the COLMAP convert CLI (``python -m gaussmart_tpu_torch.convert``).
 Every TPU kernel of those paths is a hand-written CUDA kernel (csrc/): the
 tile compositor forward and backward, their seeded variants for
 Gaussian-sharded rendering, and the sorted segment sum; each has its plain
-PyTorch version, which runs on CPU tensors.
+PyTorch version, which runs on CPU tensors. Photos are read and written
+without Pillow or OpenCV: PNG and JPEG through io/images.py, whose host
+library csrc/imagecodec.cpp (a JPEG decoder bit-equal to Pillow's, its
+default JPEG encoder, the PNG row unfilter, Pillow's resampling pass) g++
+builds into build/gaussmart_tpu_torch/ at first use.
 
 Layer map:
   ops/        - SH eval, depth->normal
-  io/         - PLY, PNG/TIFF, COLMAP, dataset readers, Gaussian snapshots
+  io/         - PLY, PNG/JPEG/TIFF (images.py, jpeg.py), COLMAP, dataset
+                readers, Gaussian snapshots
   models/     - Gaussian state (fixed capacity + active mask)
   render/     - preprocess, dense compositor, tiled compositor + kernels
   mesh/       - GaussianExtractor, TSDF fusion, marching tetrahedra
@@ -30,5 +35,6 @@ Layer map:
                 segment-aware densification
   viewer/     - network_gui protocol, viewer CLI, a scripted client
   parallel/   - device slots: data-parallel, row- and Gaussian-sharded
-  kernels.py  - nvcc build + ctypes loading of csrc/*.cu
+  kernels.py  - nvcc build + ctypes loading of csrc/*.cu; g++ builds of
+                the host libraries (build_cxx)
 """

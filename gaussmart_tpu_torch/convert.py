@@ -5,10 +5,13 @@ Pipeline parity with reference convert.py:31-123: feature extraction ->
 exhaustive matching -> mapper -> image undistortion via the `colmap`
 binary, with the same command lines, order, exit codes and sparse/0 moves,
 and optional 2x/4x/8x downscaled image copies. Gated on `colmap`
-availability. The copies are resized by io/dataset.py's copy of Pillow's
-default (bicubic) resize, equal to it to the bit, and written by
-io/images.py: the port decodes 8-bit PNGs only, so with --resize a photo
-in another format is refused before anything is written.
+availability. The copies (``resize_copies``) are resized by
+io/dataset.py's copy of Pillow's default (bicubic) resize, equal to it to
+the bit, and saved by io/images.py in the format Pillow's save picks from
+the name: a JPEG equal to Pillow's file byte for byte (its comment kept,
+its EXIF and ICC profile dropped, as Pillow does), a PNG decoding to the
+same pixels. With --resize an input the port cannot decode or re-save is
+refused, naming its format, before colmap runs or anything is written.
 """
 from __future__ import annotations
 
@@ -18,8 +21,9 @@ import subprocess
 import sys
 from argparse import ArgumentParser
 
+from gaussmart_tpu_torch.io import jpeg
 from gaussmart_tpu_torch.io.dataset import _resize_u8
-from gaussmart_tpu_torch.io.images import png_size, read_png, write_png
+from gaussmart_tpu_torch.io.images import image_format, read_image, save_format, write_image
 
 
 def run(cmd: str) -> int:
@@ -27,16 +31,32 @@ def run(cmd: str) -> int:
     return subprocess.call(cmd, shell=True)
 
 
-def require_png(folder: str):
-    """Raise unless every file in `folder` is a PNG, naming the first one
-    that is not and the decoder it would need."""
+def require_readable(folder: str):
+    """Raise unless every file in `folder` is a PNG or JPEG whose name
+    saves it as one, naming the first that is not and its format."""
     for fname in sorted(os.listdir(folder)):
-        try:
-            png_size(os.path.join(folder, fname))
-        except ValueError:
-            ext = os.path.splitext(fname)[1].lstrip(".").upper() or "this"
-            raise ValueError(f"{os.path.join(folder, fname)}: --resize decodes 8-bit "
-                             f"PNGs only; the port has no {ext} decoder") from None
+        path = os.path.join(folder, fname)
+        image_format(path)
+        save_format(path)
+
+
+def resize_copies(src: str):
+    """images_<f>/ beside src/images for f in 2, 4, 8: each image resized
+    to (w // f, h // f) as Pillow's ``Image.resize`` and saved under its
+    own name as Pillow's ``save`` (the JAX CLI's loop)."""
+    for factor in (2, 4, 8):
+        outdir = f"{src}/images_{factor}"
+        os.makedirs(outdir, exist_ok=True)
+        for fname in os.listdir(f"{src}/images"):
+            path = os.path.join(src, "images", fname)
+            img = read_image(path)
+            comment = None
+            if image_format(path) == "JPEG":
+                with open(path, "rb") as f:
+                    comment = jpeg.jpeg_comment(f.read())
+            write_image(os.path.join(outdir, fname),
+                        _resize_u8(img, img.shape[1] // factor, img.shape[0] // factor),
+                        comment=comment)
 
 
 def main(argv=None):
@@ -58,7 +78,7 @@ def main(argv=None):
     src = args.source_path
     if args.resize:
         # image_undistorter writes images/ from input/ under the same names
-        require_png(f"{src}/input")
+        require_readable(f"{src}/input")
 
     if not args.skip_matching:
         os.makedirs(f"{src}/distorted/sparse", exist_ok=True)
@@ -99,13 +119,7 @@ def main(argv=None):
 
     if args.resize:
         print("Copying and resizing...")
-        for factor in (2, 4, 8):
-            outdir = f"{src}/images_{factor}"
-            os.makedirs(outdir, exist_ok=True)
-            for fname in os.listdir(f"{src}/images"):
-                img = read_png(os.path.join(src, "images", fname))
-                write_png(os.path.join(outdir, fname),
-                          _resize_u8(img, img.shape[1] // factor, img.shape[0] // factor))
+        resize_copies(src)
     print("Done.")
 
 

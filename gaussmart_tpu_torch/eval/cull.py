@@ -18,7 +18,7 @@ from typing import Tuple
 
 import numpy as np
 
-from gaussmart_tpu_torch.io.images import read_png
+from gaussmart_tpu_torch.io.images import read_image
 from gaussmart_tpu_torch.mesh.meshing import TriMesh
 
 DTU_WH = (1600, 1200)
@@ -112,8 +112,9 @@ def dilate_mask(mask: np.ndarray, radius: int = 24) -> np.ndarray:
 
 def read_mask_channel(path: str) -> np.ndarray:
     """cv2.imread(path)[:, :, 0]: the blue channel of the image read as BGR
-    (grey images give their grey level)."""
-    img = read_png(path)
+    and turned upright by its EXIF orientation (grey images give their
+    grey level)."""
+    img = read_image(path, exif_orientation=True)
     if img.ndim == 2:
         return img
     return img[..., 2] if img.shape[2] >= 3 else img[..., 0]

@@ -21,14 +21,14 @@ import numpy as np
 import torch
 
 from gaussmart_tpu_torch.eval import lpips as lpips_mod
-from gaussmart_tpu_torch.io.images import read_png
+from gaussmart_tpu_torch.io.images import read_image
 from gaussmart_tpu_torch.ops.image import psnr as psnr_fn
 from gaussmart_tpu_torch.ops.ssim import ssim as ssim_fn
 from gaussmart_tpu_torch.runtime import resolve_device, setup
 
 
 def _read_rgb(path: Path) -> np.ndarray:
-    return np.asarray(read_png(str(path)), np.float32)[..., :3].transpose(2, 0, 1) / 255.0
+    return np.asarray(read_image(path), np.float32)[..., :3].transpose(2, 0, 1) / 255.0
 
 
 def read_images(renders_dir: Path, gt_dir: Path):

@@ -3,10 +3,12 @@
 
 Same rules as the JAX package: nerf++ normalization radius, llffhold-8
 eval split, segment-artifact loading, the 1600px auto-downscale rule and
-RGBA->mask splitting. Images are decoded by io/images.py (PNG only) to
-numpy float32 CHW on the host; a resize, where the resolution rule asks
-for one, is a numpy copy of Pillow's default ``Image.resize`` (bicubic,
-fixed point, premultiplied alpha), equal to it to the bit.
+RGBA->mask splitting. Images (PNG or JPEG, as Pillow reads them) are
+decoded by io/images.py to numpy float32 CHW on the host; a resize, where
+the resolution rule asks for one, is a copy of Pillow's default
+``Image.resize`` (bicubic, fixed point, premultiplied alpha; coefficients
+in numpy, the accumulate pass in the native codec library), equal to it
+to the bit.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from gaussmart_tpu_torch.cameras import Camera, focal2fov, fov2focal, world_to_view
-from gaussmart_tpu_torch.io import colmap
-from gaussmart_tpu_torch.io.images import png_size, read_png
+from gaussmart_tpu_torch.io import colmap, jpeg
+from gaussmart_tpu_torch.io.images import image_size, read_image
 from gaussmart_tpu_torch.io.ply import fetch_point_cloud, store_point_cloud
 from gaussmart_tpu_torch.ops.sh import sh2rgb
 
@@ -185,7 +187,7 @@ def read_blender_scene(path: str, white_background: bool,
             w2c = np.linalg.inv(c2w)
             R = w2c[:3, :3].T
             T = w2c[:3, 3]
-            width, height = png_size(img_path)
+            width, height = image_size(img_path)
             fovy = focal2fov(fov2focal(fovx, width), height)
             infos.append(CameraInfo(
                 uid=uid0 + idx, R=R, T=T, fovx=fovx, fovy=fovy,
@@ -284,15 +286,20 @@ def _resample_coeffs(in_size: int, out_size: int):
 
 def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     """One separable pass of Pillow's 8-bit resampler along `axis`:
-    accumulate from 1 << (PRECISION_BITS - 1), then clip8(acc >> bits)."""
+    accumulate from 1 << (PRECISION_BITS - 1), then clip8(acc >> bits);
+    the accumulation runs in the native codec library (io/jpeg.py)."""
     taps, k = _resample_coeffs(img.shape[axis], out_size)
-    x = np.moveaxis(img.astype(np.int64), axis, 0)
-    acc = np.full((out_size,) + x.shape[1:], 1 << (PRECISION_BITS - 1), np.int64)
-    k = k.reshape(k.shape + (1,) * (x.ndim - 1))
-    for j in range(taps.shape[1]):
-        acc += x[taps[:, j]] * k[:, j]
-    out = np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
-    return np.moveaxis(out, 0, axis)
+    x = np.ascontiguousarray(img, np.uint8)
+    outer = int(np.prod(x.shape[:axis], dtype=np.int64))
+    inner = int(np.prod(x.shape[axis + 1:], dtype=np.int64))
+    out_shape = x.shape[:axis] + (out_size,) + x.shape[axis + 1:]
+    out = np.empty(out_shape, np.uint8)
+    taps = np.ascontiguousarray(taps, np.int32)
+    k = np.ascontiguousarray(k, np.int32)
+    jpeg.native().gm_resample_u8(x.ctypes.data, outer, x.shape[axis], inner, out_size,
+                                 taps.shape[1], taps.ctypes.data, k.ctypes.data,
+                                 out.ctypes.data)
+    return out
 
 
 def _resize_u8(img: np.ndarray, w: int, h: int) -> np.ndarray:
@@ -326,7 +333,7 @@ def _resize_u8(img: np.ndarray, w: int, h: int) -> np.ndarray:
 def load_camera(info: CameraInfo, resolution: int = -1,
                 resolution_scale: float = 1.0) -> Camera:
     """Decode + resize the image, build the Camera."""
-    raw = read_png(info.image_path)
+    raw = read_image(info.image_path)
     w, h = compute_resolution(raw.shape[1], raw.shape[0], resolution,
                               resolution_scale)
     if info.white_background is not None and raw.ndim == 3 and raw.shape[2] == 4:

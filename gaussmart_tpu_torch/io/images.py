@@ -1,14 +1,24 @@
-"""8-bit PNG read/write and float32 TIFF write with zlib and numpy only.
+"""Image files on the host without Pillow or OpenCV: PNG and JPEG read,
+PNG, JPEG and float32 TIFF write.
 
-The JAX package decodes and saves images through PIL; the port must run
-where no image library is installed, so it carries this small codec.
+The JAX package decodes and saves images through PIL and cv2; the port
+must run where no image library is installed, so it carries this small
+codec. Its native half, ``csrc/imagecodec.cpp`` (the JPEG decoder and
+encoder and the PNG row unfilter), is built by g++ into
+``build/gaussmart_tpu_torch/`` at first use and bound in io/jpeg.py.
+
+``read_image`` and ``image_size`` dispatch on a file's content, as Pillow
+and cv2 do, not on its extension: the PNG signature goes to ``read_png``,
+``FF D8 FF`` to ``read_jpeg``; any other format raises ``ValueError``
+naming it. ``exif_orientation=True`` turns the image upright as
+``cv2.imread`` does (Pillow does not).
 
 PNG: non-interlaced, bit depth 8, colour types grey (0), RGB (2),
-grey+alpha (4) and RGBA (6); all five row filters. Palette images are
-refused. The Average and Paeth filters depend on the pixel to the left,
-so they are undone with a per-pixel loop: correct but slow on large
-images written by other encoders. This module's writer uses filter 0
-only, which decodes in one vectorised pass.
+grey+alpha (4) and RGBA (6); the five row filters are undone in one
+native pass. Palette images are refused. The writer uses filter 0.
+
+JPEG: see io/jpeg.py (equal to Pillow's decode to the bit, and to its
+default save to the byte).
 
 TIFF: baseline little-endian, one uncompressed strip, one float32 sample
 per pixel (what PIL writes for a mode "F" image).
@@ -18,11 +28,15 @@ Resize: OpenCV's 8-bit INTER_LINEAR in its fixed-point arithmetic
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import struct
 import zlib
 
 import numpy as np
+
+from gaussmart_tpu_torch.io import jpeg
+from gaussmart_tpu_torch.io.jpeg import JPEG_SIGNATURE, jpeg_size, tiff_orientation
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
@@ -50,50 +64,40 @@ def png_size(path: str):
     return struct.unpack(">II", head[16:24])
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
-
-
 def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
     rows = raw.reshape(height, stride + 1)
-    ftypes = rows[:, 0]
-    data = rows[:, 1:].astype(np.uint8)
-    if not ftypes.any():
-        return data
-    out = np.zeros((height, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(height):
-        f = ftypes[y]
-        line = data[y]
-        if f == 0:
-            cur = line.copy()
-        elif f == 1:    # Sub: running sum per byte lane, mod 256
-            pad = (-stride) % bpp
-            lanes = np.concatenate([line, np.zeros(pad, np.uint8)]).reshape(-1, bpp)
-            cur = (np.cumsum(lanes, axis=0, dtype=np.uint64) % 256).astype(
-                np.uint8).reshape(-1)[:stride]
-        elif f == 2:    # Up
-            cur = line + prev
-        elif f in (3, 4):
-            cur = bytearray(stride)
-            ln, up = line.tolist(), prev.tolist()
-            for i in range(stride):
-                a = cur[i - bpp] if i >= bpp else 0
-                if f == 3:
-                    pred = (a + up[i]) >> 1
-                else:
-                    pred = _paeth(a, up[i], up[i - bpp] if i >= bpp else 0)
-                cur[i] = (ln[i] + pred) & 0xFF
-            cur = np.frombuffer(bytes(cur), np.uint8)
-        else:
-            raise ValueError(f"bad PNG filter type {f}")
-        out[y] = cur
-        prev = out[y]
+    if not rows[:, 0].any():
+        return np.ascontiguousarray(rows[:, 1:])
+    out = np.empty((height, stride), np.uint8)
+    err = ctypes.create_string_buffer(128)
+    raw = np.ascontiguousarray(raw)
+    if jpeg.native().gm_png_unfilter(raw.ctypes.data, height, stride, bpp, out.ctypes.data,
+                                     err, len(err)):
+        raise ValueError(err.value.decode())
     return out
+
+
+def _decode_png(data: bytes, name: str):
+    """(image, EXIF orientation from an eXIf chunk, 1 without one)."""
+    ihdr, idat, exif = None, [], None
+    for ctype, body in _chunks(data):
+        if ctype == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"eXIf" and exif is None:
+            exif = body
+    if ihdr is None:
+        raise ValueError(f"{name}: PNG without IHDR")
+    width, height, depth, ctype, _, _, interlace = ihdr
+    if depth != 8 or ctype not in _CHANNELS or interlace:
+        raise ValueError(f"{name}: only non-interlaced 8-bit PNGs are supported "
+                         f"(bit depth {depth}, colour type {ctype}, "
+                         f"interlace {interlace})")
+    ch = _CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    img = _unfilter(raw, height, width * ch, ch).reshape(height, width, ch)
+    return img[..., 0] if ch == 1 else img, tiff_orientation(exif or b"")
 
 
 def read_png(path: str) -> np.ndarray:
@@ -101,23 +105,87 @@ def read_png(path: str) -> np.ndarray:
     ``np.asarray(PIL.Image.open(path))`` gives for these modes."""
     with open(path, "rb") as f:
         data = f.read()
-    ihdr, idat = None, []
-    for ctype, body in _chunks(data):
-        if ctype == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", body)
-        elif ctype == b"IDAT":
-            idat.append(body)
-    if ihdr is None:
-        raise ValueError(f"{path}: PNG without IHDR")
-    width, height, depth, ctype, _, _, interlace = ihdr
-    if depth != 8 or ctype not in _CHANNELS or interlace:
-        raise ValueError(f"{path}: only non-interlaced 8-bit PNGs are supported "
-                         f"(bit depth {depth}, colour type {ctype}, "
-                         f"interlace {interlace})")
-    ch = _CHANNELS[ctype]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    img = _unfilter(raw, height, width * ch, ch).reshape(height, width, ch)
-    return img[..., 0] if ch == 1 else img
+    return _decode_png(data, str(path))[0]
+
+
+# leading bytes of the formats Pillow or cv2 open and the port does not
+_OTHER_FORMATS = (
+    (b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"II*\x00", "TIFF"),
+    (b"MM\x00*", "TIFF"), (b"\x00\x00\x01\x00", "ICO"), (b"8BPS", "PSD"),
+    (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"), (b"\xff\x4f\xff\x51", "JPEG 2000"),
+)
+
+
+def image_format(path) -> str:
+    """'PNG' or 'JPEG' from the file's first bytes; any other format raises
+    ValueError naming it ("the port has no BMP decoder")."""
+    with open(path, "rb") as f:
+        head = f.read(16)
+    return _sniff(head, path)
+
+
+def _sniff(head: bytes, path) -> str:
+    if head.startswith(_PNG_SIG):
+        return "PNG"
+    if head.startswith(JPEG_SIGNATURE):
+        return "JPEG"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        name = "WebP"
+    elif head[4:8] == b"ftyp":
+        name = "HEIF/AVIF"
+    elif len(head) >= 2 and head[0:1] == b"P" and head[1:2] in b"1234567":
+        name = "PPM/PGM"
+    else:
+        name = next((n for sig, n in _OTHER_FORMATS if head.startswith(sig)), None)
+    if name is None:
+        raise ValueError(f"{path}: unknown image format; the port reads PNG and JPEG")
+    raise ValueError(f"{path}: the port has no {name} decoder (it reads PNG and JPEG)")
+
+
+def image_size(path):
+    """(width, height) of a PNG or JPEG, as Pillow's ``.size``."""
+    return png_size(path) if image_format(path) == "PNG" else jpeg_size(path)
+
+
+def read_image(path, exif_orientation: bool = False) -> np.ndarray:
+    """Decode a PNG or JPEG as ``np.asarray(PIL.Image.open(path))`` gives
+    it; with ``exif_orientation`` the image is turned upright by its EXIF
+    orientation as ``cv2.imread`` turns it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if _sniff(data[:16], path) == "PNG":
+        img, orientation = _decode_png(data, str(path))
+    else:
+        img = jpeg.decode_jpeg(data, str(path))
+        orientation = jpeg.exif_orientation(data) if exif_orientation else 1
+    if exif_orientation and orientation != 1:
+        img = jpeg.apply_exif_orientation(img, orientation)
+    return img
+
+
+# file extensions by which Pillow's save picks the JPEG and PNG writers
+_SAVE_FORMATS = {".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG", ".jfif": "JPEG",
+                 ".png": "PNG"}
+
+
+def save_format(path) -> str:
+    """'JPEG' or 'PNG', chosen by the extension as Pillow's ``save``
+    chooses; another extension raises (Pillow would write another format)."""
+    ext = os.path.splitext(os.fspath(path))[1].lower()
+    if ext not in _SAVE_FORMATS:
+        raise ValueError(f"{path}: the port writes PNG and JPEG only, not {ext or 'no'} "
+                         "files")
+    return _SAVE_FORMATS[ext]
+
+
+def write_image(path, img: np.ndarray, comment=None):
+    """Save as Pillow's ``Image.fromarray(img).save(path)`` picks the format
+    (by extension): a JPEG through write_jpeg, with `comment` as its COM
+    segment, a PNG through write_png."""
+    if save_format(path) == "JPEG":
+        jpeg.write_jpeg(path, img, comment=comment)
+    else:
+        write_png(os.fspath(path), img)
 
 
 def _chunk(ctype: bytes, body: bytes) -> bytes:

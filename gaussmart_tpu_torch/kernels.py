@@ -8,10 +8,16 @@ under ``build/gaussmart_tpu_torch/`` at first use and loaded with ctypes;
 the library name carries a hash of the source and flags, so an edited
 source is rebuilt. Nothing is built or loaded at import time, and nothing
 here runs for CPU tensors.
+
+The host libraries (the marching-tetrahedra core, the image codec
+``csrc/imagecodec.cpp``) are built by g++ through ``build_cxx`` into the
+same directory; their names hash the source, the flags and the compiler's
+``-march=native`` target, and a failed build raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,6 +32,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "gaussmart_tpu_to
 # agree to the bit; -Xptxas -v reports registers and shared memory.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+
+# host C++ libraries (ctypes, no Python headers)
+CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -69,6 +78,42 @@ def load(name: str, entry: str, argtypes) -> ctypes._CFuncPtr:
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def _run_cxx(cmd, src: Path):
+    try:
+        return subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(f"cannot build {src.name}: {cmd[0]} not found") from e
+
+
+@functools.lru_cache(maxsize=None)
+def _cxx_target(src: Path) -> str:
+    return _run_cxx(["g++", "-march=native", "-Q", "--help=target"], src).stdout
+
+
+def cxx_library_path(src: Path, stem: str) -> Path:
+    """Where g++'s build of `src` lives: lib<stem>-<hash>.so, the hash over
+    the source, the flags and the target `-march=native` resolves to."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode()
+                            + _cxx_target(src).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{stem}-{digest}.so"
+
+
+def build_cxx(src: Path, stem: str) -> Path:
+    """Compile a host C++ source with g++ unless it is built already;
+    raise if g++ fails. Returns the library's path."""
+    out = cxx_library_path(src, stem)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = _run_cxx(["g++", *CXX_FLAGS, str(src), "-o", str(tmp)], src)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {src.name}:\n{proc.stdout}")
+    os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
+    return out
 
 
 def check_tensors(tensors, device):

@@ -2,60 +2,33 @@
 (counterpart of gaussmart_tpu/mesh/native.py).
 
 Compiles native/marching_tet.cpp with the JAX package's flags into
-``build/gaussmart_tpu_torch/`` at first use, never beside the source. The
-library name carries a hash of the source, the flags and the compiler's
-``-march=native`` target, so an edited source, or a checkout moved to
-another CPU, is rebuilt. A failed build raises: there is no silent numpy
-path (mesh/marching.py's numpy body is the plain twin, for tests).
+``build/gaussmart_tpu_torch/`` at first use, never beside the source,
+through kernels.build_cxx. The library name carries a hash of the source,
+the flags and the compiler's ``-march=native`` target, so an edited
+source, or a checkout moved to another CPU, is rebuilt. A failed build
+raises: there is no silent numpy path (mesh/marching.py's numpy body is
+the plain twin, for tests).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
-from gaussmart_tpu_torch.kernels import BUILD_DIR
+from gaussmart_tpu_torch import kernels
 
 SRC = Path(__file__).resolve().parents[2] / "native" / "marching_tet.cpp"
-CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 
 
-def _run(cmd):
-    try:
-        return subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError(f"cannot build {SRC.name}: {cmd[0]} not found") from e
-
-
-def library_path() -> Path:
-    target = _run(["g++", "-march=native", "-Q", "--help=target"]).stdout
-    digest = hashlib.sha256(SRC.read_bytes() + " ".join(CXX_FLAGS).encode()
-                            + target.encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libmarching_tet-{digest}.so"
-
-
 def build() -> Path:
     """Compile the core unless it is built already; raise if g++ fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = _run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)])
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SRC.name}:\n{proc.stdout}")
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
-    return out
+    return kernels.build_cxx(SRC, "marching_tet")
 
 
 def get_lib() -> ctypes.CDLL:

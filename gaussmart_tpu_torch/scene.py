@@ -24,6 +24,7 @@ from gaussmart_tpu_torch.io.dataset import (AUTO_CAP_WIDTH, SceneInfo,
                                             camera_to_json, detect_and_read,
                                             load_camera)
 from gaussmart_tpu_torch.io.gaussian_ply import load_gaussian_ply, save_gaussian_ply
+from gaussmart_tpu_torch.io.images import image_size
 from gaussmart_tpu_torch.models.gaussians import GaussianState, init_from_pcd
 from gaussmart_tpu_torch.semantics.augment import (augment_by_mask_areas,
                                                    augment_uniform)
@@ -68,8 +69,10 @@ class Scene:
             rnd.shuffle(info.test_cameras)
 
         self.cameras_extent = float(info.nerf_normalization["radius"])
+        # the photos' own widths (as the JAX loader decodes them), not the
+        # intrinsics': `-i images_4` holds copies below the cap
         if args.resolution == -1 and any(
-                c.width > AUTO_CAP_WIDTH
+                image_size(c.image_path)[0] > AUTO_CAP_WIDTH
                 for c in info.train_cameras + info.test_cameras):
             print("[ INFO ] large input images detected; rescaling to 1.6K "
                   "width (use --resolution 1 to disable)")

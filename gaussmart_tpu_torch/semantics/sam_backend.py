@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from scipy import ndimage
 
-from gaussmart_tpu_torch.io.images import read_png, resize_linear_u8
+from gaussmart_tpu_torch.io.images import read_image, resize_linear_u8
 from gaussmart_tpu_torch.semantics.kmeans import quantize_colors
 
 MAX_IMAGE_SIZE = 1024
@@ -39,8 +39,9 @@ MAX_IMAGE_SIZE = 1024
 
 def _load_image_rgb(image_path: str, max_size: int = MAX_IMAGE_SIZE) -> np.ndarray:
     """uint8 [h, w, 3] RGB as cv2.imread + the 1024-px cap + BGR->RGB give
-    it (grey repeated, alpha dropped)."""
-    img = read_png(image_path)
+    it (turned upright by its EXIF orientation, grey repeated, alpha
+    dropped)."""
+    img = read_image(image_path, exif_orientation=True)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=2)
     elif img.shape[2] == 2:

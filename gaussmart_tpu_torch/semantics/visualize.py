@@ -1,11 +1,12 @@
 """DINO CLS-patch similarity heatmap CLI (counterpart of
 gaussmart_tpu/semantics/visualize.py):
-``python -m gaussmart_tpu_torch.semantics.visualize -i <image.png> -o
-<out.png> [--alpha --random_encoder --device]``.
+``python -m gaussmart_tpu_torch.semantics.visualize -i <image> -o
+<out.png|out.jpg> [--alpha --random_encoder --device]``.
 
 The card's machine has neither OpenCV nor Pillow: images are read and
-written by io/images.py (8-bit PNGs only; the JAX CLI reads any format
-Pillow reads), the upsample of the heatmap is io/images.py's copy of
+written by io/images.py (PNG and JPEG in, PNG or JPEG out by the output's
+extension as Pillow chooses; the JAX CLI reads any format Pillow reads),
+the upsample of the heatmap is io/images.py's copy of
 cv2.resize(INTER_LINEAR), equal to it to the bit, and the colour map is
 OpenCV's turbo table, round(trajectory.TURBO * 255).
 """
@@ -16,7 +17,7 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from gaussmart_tpu_torch.io.images import read_png, resize_linear_u8, write_png
+from gaussmart_tpu_torch.io.images import read_image, resize_linear_u8, write_image
 from gaussmart_tpu_torch.runtime import resolve_device, setup
 from gaussmart_tpu_torch.semantics.dino import DinoEncoder
 from gaussmart_tpu_torch.trajectory import TURBO
@@ -54,9 +55,9 @@ def overlay_heatmap(image: np.ndarray, heat: np.ndarray,
 
 
 def read_rgb(path: str) -> np.ndarray:
-    """An 8-bit PNG as [H,W,3] float32 in [0,1], converted to RGB as
+    """A PNG or JPEG as [H,W,3] float32 in [0,1], converted to RGB as
     Pillow's convert("RGB") does (grey repeated, alpha dropped)."""
-    img = read_png(path)
+    img = read_image(path)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=2)
     elif img.shape[2] == 2:
@@ -86,7 +87,7 @@ def main(argv=None):
     rgb = read_rgb(args.image)
     heat = cls_patch_heatmap(enc, rgb.transpose(2, 0, 1))
     out = overlay_heatmap(rgb, heat, args.alpha)
-    write_png(args.output, np.clip(out * 255, 0, 255).astype(np.uint8))
+    write_image(args.output, np.clip(out * 255, 0, 255).astype(np.uint8))
     print(f"saved {args.output}")
 
 

@@ -107,17 +107,48 @@ def test_lpips_weight_files_match_jax(tmp_path, monkeypatch, no_lpips_weights):
                 np.testing.assert_array_equal(zt[k], zj[k])
 
 
-def _metrics_model(root, rng, n=3, size=(40, 30)):
+def _metrics_model(root, rng, n=3, size=(40, 30), ext="png"):
     mdir = root / "test" / "ours_30000"
     os.makedirs(mdir / "renders")
     os.makedirs(mdir / "gt")
     w, h = size
     for i in range(n):
         img = (rng.random((h, w, 3)) * 255).astype(np.uint8)
-        Image.fromarray(img).save(mdir / "renders" / f"{i:05d}.png")
+        Image.fromarray(img).save(mdir / "renders" / f"{i:05d}.{ext}")
         noisy = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
-        Image.fromarray(noisy).save(mdir / "gt" / f"{i:05d}.png")
+        Image.fromarray(noisy).save(mdir / "gt" / f"{i:05d}.{ext}")
     return str(root)
+
+
+def _assert_json_close(a, b, where):
+    """Equal keys in order, equal nulls, numbers within a 1e-5 ratio."""
+    if isinstance(b, dict):
+        assert isinstance(a, dict) and list(a) == list(b), where
+        for k in b:
+            _assert_json_close(a[k], b[k], f"{where}/{k}")
+    elif b is None:
+        assert a is None, where
+    else:
+        assert a == pytest.approx(b, rel=1e-5, abs=0), where
+
+
+def _read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def test_metrics_cli_json_matches_jax_on_jpeg_images(tmp_path, no_lpips_weights):
+    """Renders and ground truth as JPEG photos (4:2:0, Pillow's default
+    save): the port's decode equals Pillow's, so both JSON files equal
+    the JAX CLI's."""
+    ours = _metrics_model(tmp_path / "port", np.random.default_rng(5), size=(61, 45), ext="jpg")
+    theirs = _metrics_model(tmp_path / "jax", np.random.default_rng(5), size=(61, 45),
+                            ext="jpg")
+    t_metrics.main(["-m", ours, "--device", "cpu", "--no_lpips"])
+    j_metrics.evaluate([theirs], use_lpips=False)
+    for name in ("results.json", "per_view.json"):
+        _assert_json_close(_read_json(os.path.join(ours, name)),
+                           _read_json(os.path.join(theirs, name)), name)
 
 
 @pytest.mark.parametrize("with_weights", [False, True])
@@ -130,21 +161,8 @@ def test_metrics_cli_json_matches_jax(tmp_path, rng, monkeypatch, no_lpips_weigh
     t_metrics.main(["-m", ours, "--device", "cpu"])
     j_metrics.evaluate([theirs])
     for name in ("results.json", "per_view.json"):
-        with open(os.path.join(ours, name)) as f:
-            got = json.load(f)
-        with open(os.path.join(theirs, name)) as f:
-            ref = json.load(f)
-
-        def walk(a, b, where):
-            if isinstance(b, dict):
-                assert isinstance(a, dict) and list(a) == list(b), where
-                for k in b:
-                    walk(a[k], b[k], f"{where}/{k}")
-            elif b is None:
-                assert a is None, where
-            else:
-                assert a == pytest.approx(b, rel=1e-5, abs=0), where
-        walk(got, ref, name)
+        _assert_json_close(_read_json(os.path.join(ours, name)),
+                           _read_json(os.path.join(theirs, name)), name)
     with open(os.path.join(ours, "results.json")) as f:
         assert (json.load(f)["ours_30000"]["LPIPS"] is not None) == with_weights
 
@@ -278,6 +296,19 @@ def test_mask_channel_matches_opencv_imread(tmp_path, rng, mode):
     Image.fromarray(img[..., 0] if ch == 1 else img, mode).save(tmp_path / "m.png")
     np.testing.assert_array_equal(tcull.read_mask_channel(str(tmp_path / "m.png")),
                                   cv2.imread(str(tmp_path / "m.png"))[:, :, 0])
+
+
+@pytest.mark.parametrize("name,mode,orientation", [("m.png", "RGB", 6), ("m.jpg", "RGB", 6),
+                                                   ("m.jpg", "L", 3), ("m.png", "L", 1)])
+def test_cull_reads_masks_as_cv2_imread(tmp_path, rng, name, mode, orientation):
+    """read_mask_channel is cv2.imread(path)[:, :, 0]: EXIF orientation
+    applied, the blue channel of colour masks, the level of grey ones."""
+    img = (rng.random((30, 50, 3)) * 255).astype(np.uint8)
+    exif = Image.Exif()
+    exif[0x0112] = orientation
+    Image.fromarray(img).convert(mode).save(tmp_path / name, exif=exif)
+    np.testing.assert_array_equal(tcull.read_mask_channel(str(tmp_path / name)),
+                                  cv2.imread(str(tmp_path / name))[:, :, 0])
 
 
 def test_cull_matches_jax(tmp_path, rng):

@@ -153,6 +153,68 @@ def test_colmap_scene_and_cameras_match_jax(tmp_path, rng, rgba):
         np.testing.assert_array_equal(cam_t.full_proj, cam_j.full_proj)
 
 
+@pytest.mark.parametrize("resolution", [1, 2, -1])
+def test_jpeg_colmap_scene_and_cameras_match_jax(tmp_path, rng, resolution):
+    """A COLMAP scene of JPEG photos 1703 px wide (over the 1600-px cap):
+    4:2:0 and 4:4:4 colour, grey (repeated to 3 channels), progressive and
+    an EXIF-rotated photo (which Pillow, and so load_camera, leaves as
+    stored): the port's cameras equal the JAX package's at -r 1, 2 and
+    the automatic cap."""
+    sparse = tmp_path / "sparse" / "0"
+    os.makedirs(sparse)
+    os.makedirs(tmp_path / "images")
+    w, h = 1703, 64
+    write_cameras_text(str(sparse / "cameras.txt"),
+                       {1: ColmapCamera(1, "PINHOLE", w, h, np.array([900.0, 900.0, w / 2, h / 2]))})
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    saves = ({}, {"subsampling": 0, "quality": 95}, {"mode": "L"}, {"progressive": True},
+             {"exif": exif})
+    imgs = {}
+    y, x = np.mgrid[:h, :w]
+    for i, kw in enumerate(saves):
+        kw = dict(kw)
+        img = np.stack([x * 255 // w, y * 4 % 256, (x + 3 * y) % 256], -1).astype(np.uint8)
+        img = np.clip(img + rng.integers(-20, 21, img.shape), 0, 255).astype(np.uint8)
+        pil = Image.fromarray(img)
+        if kw.pop("mode", None):
+            pil = pil.convert("L")
+        pil.save(tmp_path / "images" / f"v{i}.jpg", **kw)
+        imgs[i + 1] = ColmapImage(i + 1, rotmat2qvec(np.eye(3)), rng.normal(size=3), 1,
+                                  f"v{i}.jpg")
+    write_images_text(str(sparse / "images.txt"), imgs)
+    store_point_cloud(str(sparse / "points3D.ply"), rng.normal(size=(20, 3)),
+                      rng.integers(0, 255, (20, 3)).astype(np.float64))
+    j = jds.detect_and_read(str(tmp_path))
+    t = tds.detect_and_read(str(tmp_path))
+    assert len(t.train_cameras) == len(j.train_cameras) == len(saves)
+    for cj, ct in zip(j.train_cameras, t.train_cameras):
+        cam_j = jds.load_camera(cj, resolution=resolution)
+        cam_t = tds.load_camera(ct, resolution=resolution)
+        assert cam_t.image.shape == cam_j.image.shape == \
+            (3, *{1: (64, 1703), 2: (32, 852), -1: (60, 1600)}[resolution])
+        np.testing.assert_array_equal(cam_t.image, cam_j.image, err_msg=ct.image_name)
+        np.testing.assert_array_equal(cam_t.full_proj, cam_j.full_proj)
+
+
+def test_the_cap_message_follows_the_photos_not_the_intrinsics(tmp_path, rng, capsys):
+    """As the JAX loader (which prints on decoding a photo over 1600 px):
+    intrinsics 3200 px wide with 40-px photos (a `-i images_N` copy) load
+    silently; 1703-px photos print the message."""
+    from gaussmart_tpu_torch.config import ModelParams
+    from gaussmart_tpu_torch.scene import Scene
+    for w, said in ((40, False), (1703, True)):
+        root = tmp_path / str(w)
+        _colmap_scene(root, rng, n_views=2, size=(3200, 8))
+        for i in range(2):
+            img = (rng.random((8, w, 3)) * 255).astype(np.uint8)
+            Image.fromarray(img).save(root / "images" / f"v{i}.png")
+        capsys.readouterr()
+        Scene(ModelParams(source_path=str(root), model_path=str(tmp_path / f"m{w}"),
+                          sh_degree=1), capacity=64, seed=0, device="cpu")
+        assert ("large input images detected" in capsys.readouterr().out) == said
+
+
 def test_blender_scene_and_resize_match_jax(tmp_path, rng):
     frames = []
     os.makedirs(tmp_path / "train")

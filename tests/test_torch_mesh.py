@@ -193,8 +193,8 @@ def test_native_core_builds_into_build_and_matches_jax_and_numpy(rng):
             return os.stat(so).st_mtime_ns, hashlib.sha256(f.read()).hexdigest()
     before = stamp()
     path = tnative.build()
-    assert path.parent == tnative.BUILD_DIR and path.exists()
-    assert tnative.BUILD_DIR.parts[-2:] == ("build", "gaussmart_tpu_torch")
+    assert path.parent == tnative.kernels.BUILD_DIR and path.exists()
+    assert tnative.kernels.BUILD_DIR.parts[-2:] == ("build", "gaussmart_tpu_torch")
     assert stamp() == before                      # nothing written under native/
     if not jnative.available():
         pytest.skip("the JAX package's loader found no C++ toolchain")
@@ -216,7 +216,7 @@ def test_native_build_failure_raises(monkeypatch, tmp_path):
     bad = tmp_path / "broken.cpp"
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(tnative, "SRC", bad)
-    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tnative.kernels, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         tnative.build()
 

@@ -354,12 +354,22 @@ def test_resize_equals_opencv_at_the_dtu_size(rng):
         np.testing.assert_array_equal(resize_linear_u8(a, W, H), cv2.resize(a, (W, H)))
 
 
-@pytest.mark.parametrize("mode", ["RGB", "RGBA", "L"])
+@pytest.mark.parametrize("mode", ["RGB", "RGBA", "L", "JPEG", "JPEG-L", "JPEG-orient6"])
 def test_load_image_rgb_matches_jax(tmp_path, rng, mode):
-    shape = {"RGB": (1200, 1600, 3), "RGBA": (600, 1100, 4), "L": (500, 700)}[mode]
+    """PNGs of three modes, and JPEGs (RGB at the DTU size, grey, and an
+    EXIF orientation-6 photo that cv2 turns upright before the cap)."""
+    shape = {"RGB": (1200, 1600, 3), "RGBA": (600, 1100, 4), "L": (500, 700),
+             "JPEG": (1200, 1600, 3), "JPEG-L": (500, 700), "JPEG-orient6": (700, 1300, 3)}[mode]
     img = (rng.random(shape) * 256).astype(np.uint8)
-    path = str(tmp_path / "img.png")
-    Image.fromarray(img, mode).save(path, compress_level=1)
+    if mode.startswith("JPEG"):
+        path = str(tmp_path / "img.jpg")
+        exif = Image.Exif()
+        if mode == "JPEG-orient6":
+            exif[0x0112] = 6
+        Image.fromarray(img).save(path, quality=90, exif=exif)
+    else:
+        path = str(tmp_path / "img.png")
+        Image.fromarray(img, mode).save(path, compress_level=1)
     np.testing.assert_array_equal(tsam._load_image_rgb(path), jsam._load_image_rgb(path))
 
 
@@ -536,15 +546,50 @@ def _dtu_scan(root, rng, n_views=8, w=64, h=48):
     store_point_cloud(str(sparse / "points3D.ply"), pts, cols)
 
 
-@pytest.mark.parametrize("kind", ["nerf", "dtu"])
+def _tyt_scan(root, rng, n_views=4, w=979, h=543):
+    """A TYT scan: NNNNN.jpg photos (JPEG, as the format ships; at the
+    loader's default 979x543, so that its bounding-box projection lands
+    the points inside the masks), poses_bounds.npy with 14 columns whose
+    second half the loader drops, and the same cameras as a COLMAP text
+    model for the Scene."""
+    os.makedirs(root / "images")
+    sparse = root / "sparse" / "0"
+    os.makedirs(sparse)
+    rows, imgs = [], {}
+    palette = rng.integers(0, 256, (8, 3)).astype(np.uint8)
+    for i in range(2 * n_views):
+        c2w = _ring_c2w(0.3 * i, 3.0)
+        rows.append(np.concatenate([c2w[:3].reshape(-1), rng.uniform(0.5, 4.0, 2)]))
+        if i < n_views:
+            w2c = np.linalg.inv(c2w)
+            imgs[i + 1] = ColmapImage(i + 1, rotmat2qvec(w2c[:3, :3]), w2c[:3, 3], 1,
+                                      f"{i:05d}.jpg")
+            # 8 flat colour blocks: the classical backend's 8-colour
+            # k-means settles at once on photos this size
+            blocks = rng.permutation(palette).reshape(2, 4, 3)
+            img = blocks.repeat(-(-h // 2), 0).repeat(-(-w // 4), 1)[:h, :w]
+            Image.fromarray(img).save(root / "images" / f"{i:05d}.jpg", quality=95)
+    np.save(root / "poses_bounds.npy", np.stack(rows))
+    write_cameras_text(str(sparse / "cameras.txt"),
+                       {1: ColmapCamera(1, "PINHOLE", w, h, np.array([501.0, 277.0, w / 2, h / 2]))})
+    write_images_text(str(sparse / "images.txt"), imgs)
+    pts = rng.normal(scale=0.4, size=(300, 3)).astype(np.float32)
+    store_point_cloud(str(sparse / "points3D.ply"), pts,
+                      rng.integers(0, 255, (300, 3)).astype(np.float64))
+
+
+SCANS = {"nerf": lambda root, rng: _nerf_scan(root, rng), "dtu": _dtu_scan, "tyt": _tyt_scan}
+
+
+@pytest.mark.parametrize("kind", ["nerf", "dtu", "tyt"])
 def test_pipeline_artifacts_equal_jax_with_precomputed_masks(tmp_path, rng, capsys, kind):
     """test_semantics.py's nerf scan (its views are 64 px where the nerf
     loader puts the principal point at 512: no point lands in a mask, in
-    both packages) and a DTU scan: the port's classical masks, then both
-    pipelines on them as precomputed masks (--clean): byte-equal
-    artifacts and the same prints."""
+    both packages), a DTU scan and a TYT scan of NNNNN.jpg photos: the
+    port's classical masks, then both pipelines on them as precomputed
+    masks (--clean): byte-equal artifacts and the same prints."""
     scan = tmp_path / "scan"
-    _nerf_scan(scan, rng) if kind == "nerf" else _dtu_scan(scan, rng)
+    SCANS[kind](scan, rng)
     made = tpipe.Pipeline(str(scan), str(tmp_path / "made"), kind,
                           mask_backend="classical", device="cpu")
     made.run(clean_pc=True)
@@ -560,7 +605,7 @@ def test_pipeline_artifacts_equal_jax_with_precomputed_masks(tmp_path, rng, caps
     assert port_out == capsys.readouterr().out
     _assert_artifacts_equal(str(tmp_path / "port" / "segments"),
                             str(tmp_path / "jax" / "segments"))
-    assert (got[0] >= 0).any() == (kind == "dtu")
+    assert (got[0] >= 0).any() == (kind != "nerf")
 
 
 def test_pipeline_artifacts_equal_jax_on_a_two_colour_scan(tmp_path, rng):
@@ -636,22 +681,25 @@ def test_each_scene_loads_the_other_packages_artifacts(tmp_path, rng, monkeypatc
         assert got[2] > 300, name           # the mask-area augmentation added points
 
 
-@pytest.mark.parametrize("kind", ["nerf", "dtu"])
+@pytest.mark.parametrize("kind", ["nerf", "dtu", "tyt"])
 def test_train_run_segmentation_on_the_cpu(tmp_path, rng, monkeypatch, kind):
     """train --run_segmentation --device cpu from a temporary working
     directory, on test_pipeline_interop.py's nerf scan (no point lands in a
-    mask: the reference's nerf principal point) and on the DTU scan (the
-    augmentation adds points): the pipeline's artifacts under
-    identification/results, the Scene's point count and segments those of
-    the JAX Scene on them, and 3 iterations on that cloud."""
+    mask: the reference's nerf principal point), on the DTU scan and on the
+    TYT scan of JPEG photos (the augmentation adds points): the pipeline's
+    artifacts under identification/results, the Scene's point count and
+    segments those of the JAX Scene on them, and 3 iterations on that
+    cloud."""
     scan = tmp_path / "scan"
-    _interop_scan(scan, rng) if kind == "nerf" else _dtu_scan(scan, rng)
+    {"nerf": _interop_scan, "dtu": _dtu_scan, "tyt": _tyt_scan}[kind](scan, rng)
     work = tmp_path / "work"
     os.makedirs(work)
     monkeypatch.chdir(work)
+    # the TYT photos train at -r 8 (the port's copy of Pillow's resize of a JPEG)
+    res = "8" if kind == "tyt" else "1"
     state, _ = ttrain.main(["-s", str(scan), "-m", str(tmp_path / "out"), "--run_segmentation",
                             "--dataset_type", kind, "--device", "cpu", "--iterations", "3",
-                            "--sh_degree", "1", "--resolution", "1", "--test_iterations", "3",
+                            "--sh_degree", "1", "--resolution", res, "--test_iterations", "3",
                             "--capacity", "4096", "--no_tensorboard", "--quiet",
                             "--dino_mode", "off"])
     pc = work / "identification" / "results" / "segments" / "point_cloud"
@@ -662,7 +710,7 @@ def test_train_run_segmentation_on_the_cpu(tmp_path, rng, monkeypatch, kind):
     assert "segmented_point_cloud" in ref.info.ply_path
     n = int(state.n_active)
     assert n == int(ref.gaussians.n_active)
-    assert (n > 300) == (kind == "dtu")
+    assert (n > 300) == (kind != "nerf")
     np.testing.assert_array_equal(state.aux.segments[:n].numpy(),
                                   np.asarray(ref.gaussians.aux.segments)[:n])
     assert (tmp_path / "out" / "point_cloud" / "iteration_3" / "point_cloud.ply").exists()
@@ -735,10 +783,43 @@ def test_convert_matches_jax_with_a_fake_colmap(tmp_path, rng, fake_colmap, caps
                                                        / name)), ref)
 
 
+def test_convert_resize_of_jpeg_photos_equals_jax_byte_for_byte(tmp_path, rng, fake_colmap):
+    """--resize on JPEG inputs (4:2:0 RGB from Pillow, a grey JPEG, a
+    progressive one, an EXIF orientation-6 photo with a comment and an
+    ICC profile, a 4:4:4 file from cv2): images_2/4/8 equal the JAX CLI's
+    files byte for byte (Pillow's default save of the resized copy, which
+    keeps the comment and drops EXIF and ICC)."""
+    for name in ("port", "jax"):
+        os.makedirs(tmp_path / name / "input")
+    img = _blocky_image(rng, 88, 131)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    saves = {"a.jpg": dict(quality=90), "b.jpg": dict(progressive=True),
+             "c.jpeg": dict(exif=exif, comment=b"scan 7", icc_profile=b"\x00" * 128)}
+    for fname, kw in saves.items():
+        Image.fromarray(img).save(tmp_path / "port" / "input" / fname, **kw)
+    Image.fromarray(img[..., 1]).save(tmp_path / "port" / "input" / "d.jpg")
+    cv2.imwrite(str(tmp_path / "port" / "input" / "e.jpg"), img[..., ::-1],
+                [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444])
+    for fname in os.listdir(tmp_path / "port" / "input"):
+        shutil.copy(tmp_path / "port" / "input" / fname, tmp_path / "jax" / "input" / fname)
+    tconvert.main(["-s", str(tmp_path / "port"), "--resize", "--no_gpu"])
+    jconvert.main(["-s", str(tmp_path / "jax"), "--resize", "--no_gpu"])
+    for factor in (2, 4, 8):
+        names = sorted(os.listdir(tmp_path / "jax" / f"images_{factor}"))
+        assert names == sorted(os.listdir(tmp_path / "port" / f"images_{factor}")) \
+            == ["a.jpg", "b.jpg", "c.jpeg", "d.jpg", "e.jpg"]
+        for name in names:
+            got = (tmp_path / "port" / f"images_{factor}" / name).read_bytes()
+            assert got == (tmp_path / "jax" / f"images_{factor}" / name).read_bytes(), name
+    assert b"scan 7" in (tmp_path / "port" / "images_2" / "c.jpeg").read_bytes()
+
+
 def test_convert_refuses_what_it_cannot_do(tmp_path, rng, fake_colmap, monkeypatch, capsys):
     """A failing colmap step exits with its code as JAX's does; with
-    --resize a JPEG input is refused before colmap runs or anything is
-    written; without colmap on PATH both exit 1 with the same message."""
+    --resize a BMP input (which Pillow reads and the port does not) is
+    refused before colmap runs or anything is written; without colmap on
+    PATH both exit 1 with the same message."""
     src = tmp_path / "src"
     _convert_source(src, rng)
     monkeypatch.setenv("COLMAP_FAIL_mapper", "3")
@@ -746,10 +827,10 @@ def test_convert_refuses_what_it_cannot_do(tmp_path, rng, fake_colmap, monkeypat
         with pytest.raises(SystemExit) as e:
             mod.main(["-s", str(src)])
         assert e.value.code == 3
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(src / "input" / "photo.jpg")
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(src / "input" / "photo.bmp")
     before = fake_colmap.read_text()
     shutil.rmtree(src / "distorted")
-    with pytest.raises(ValueError, match="no JPG decoder"):
+    with pytest.raises(ValueError, match="no BMP decoder"):
         tconvert.main(["-s", str(src), "--resize"])
     assert fake_colmap.read_text() == before and not (src / "distorted").exists()
     monkeypatch.setenv("PATH", str(tmp_path / "empty"))

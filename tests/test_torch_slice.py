@@ -15,6 +15,8 @@ from PIL import Image
 
 from gaussmart_tpu import trajectory as jtraj
 from gaussmart_tpu.config import ModelParams as JModelParams
+from gaussmart_tpu.io.colmap import (ColmapCamera, ColmapImage, write_cameras_text,
+                                     write_images_text)
 from gaussmart_tpu.io.gaussian_ply import save_gaussian_ply as j_save_ply
 from gaussmart_tpu.io.ply import store_point_cloud
 from gaussmart_tpu.mesh.extract import GaussianExtractor as JExtractor
@@ -131,7 +133,10 @@ def test_port_imports_no_jax(tmp_path):
     tower), the DINO heatmap CLI and the viewer CLI answering a scripted
     client, the segmentation pipeline (classical masks) and convert --help,
     leaves neither jax nor gaussmart_tpu in sys.modules, nor transformers,
-    PIL, cv2, sklearn or matplotlib, which the card's machine lacks."""
+    PIL, cv2, sklearn or matplotlib, which the card's machine lacks; nor
+    does loading a COLMAP scene of JPEG photos (their cameras at -r 1 and
+    2), convert's resize of them, and the heatmap CLI from a JPEG to a
+    JPEG."""
     model, cfg = _model_dir(str(tmp_path), n=40)
     src, out = cfg["source_path"], str(tmp_path / "trained")
     png, heat = str(tmp_path / "in.png"), str(tmp_path / "heat.png")
@@ -152,6 +157,23 @@ def test_port_imports_no_jax(tmp_path):
     np.savez(scan / "cameras.npz", **mats)
     store_point_cloud(str(scan / "points.ply"), rng.normal(scale=0.3, size=(50, 3)),
                       rng.integers(0, 255, (50, 3)).astype(np.float64))
+    # a COLMAP scene of JPEG photos, with the images/ convert resizes
+    jscene = tmp_path / "jpeg_scene"
+    os.makedirs(jscene / "sparse" / "0")
+    os.makedirs(jscene / "images")
+    write_cameras_text(str(jscene / "sparse" / "0" / "cameras.txt"),
+                       {1: ColmapCamera(1, "PINHOLE", 40, 30, np.array([30.0, 30, 20, 15]))})
+    write_images_text(str(jscene / "sparse" / "0" / "images.txt"),
+                      {i + 1: ColmapImage(i + 1, np.array([1.0, 0, 0, 0]),
+                                          np.array([0.1 * i, 0, 3.0]), 1, f"{i:05d}.jpg")
+                       for i in range(3)})
+    store_point_cloud(str(jscene / "sparse" / "0" / "points3D.ply"),
+                      rng.normal(scale=0.3, size=(50, 3)),
+                      rng.integers(0, 255, (50, 3)).astype(np.float64))
+    for i in range(3):
+        Image.fromarray((rng.random((30, 40, 3)) * 255).astype(np.uint8)).save(
+            jscene / "images" / f"{i:05d}.jpg")
+    jpg_in, jpg_heat = str(jscene / "images" / "00000.jpg"), str(tmp_path / "heat.jpg")
     code = f"""
 import importlib, os, pkgutil, sys
 import numpy as np
@@ -198,6 +220,13 @@ try:
     convert.main(["--help"])
 except SystemExit as e:
     assert e.code == 0
+from gaussmart_tpu_torch.io import dataset
+info = dataset.detect_and_read({str(jscene)!r})
+for res in (1, 2):
+    cams = [dataset.load_camera(c, resolution=res) for c in info.train_cameras]
+    assert [c.image.shape for c in cams] == [(3, 30 // res, 40 // res)] * 3
+convert.resize_copies({str(jscene)!r})
+visualize.main(["-i", {jpg_in!r}, "-o", {jpg_heat!r}, "--random_encoder", "--device", "cpu"])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "gaussmart_tpu", "transformers", "PIL", "cv2", "sklearn",
     "matplotlib"))
@@ -219,6 +248,8 @@ print("CLEAN")
         assert os.path.exists(os.path.join(o, "point_cloud", "iteration_3", "point_cloud.ply"))
         assert os.path.exists(os.path.join(o, "eval_3.json"))
     assert _png(heat).shape == (30, 40, 3)
+    assert Image.open(jpg_heat).format == "JPEG" and Image.open(jpg_heat).size == (40, 30)
+    assert Image.open(jscene / "images_4" / "00001.jpg").size == (10, 7)
     assert os.path.exists(os.path.join(seg_out, "segments", "point_cloud", "segment_indices.npy"))
 
 
