@@ -132,8 +132,10 @@ def test_port_imports_no_jax(tmp_path):
     --shard_mode gaussian; dp and mp, with the DINO term on the random
     tower), the DINO heatmap CLI and the viewer CLI answering a scripted
     client, the segmentation pipeline (classical masks) and convert --help,
-    leaves neither jax nor gaussmart_tpu in sys.modules, nor transformers,
-    PIL, cv2, sklearn or matplotlib, which the card's machine lacks; nor
+    the validation scene's generator and Chamfer evaluator, the NeRF
+    driver's chain and the summary, leaves neither jax nor gaussmart_tpu
+    nor the repo's scripts package in sys.modules, nor transformers, PIL,
+    cv2, sklearn, matplotlib or pandas, which the card's machine lacks; nor
     does loading a COLMAP scene of JPEG photos (their cameras at -r 1 and
     2), convert's resize of them, and the heatmap CLI from a JPEG to a
     JPEG."""
@@ -174,6 +176,12 @@ def test_port_imports_no_jax(tmp_path):
         Image.fromarray((rng.random((30, 40, 3)) * 255).astype(np.uint8)).save(
             jscene / "images" / f"{i:05d}.jpg")
     jpg_in, jpg_heat = str(jscene / "images" / "00000.jpg"), str(tmp_path / "heat.jpg")
+    # the evaluation tools: a validation scene, its Chamfer on the render
+    # CLI's mesh, one driver's chain on the Blender scene (as NeRF's lego)
+    synth, nerf, drv = str(tmp_path / "synth"), tmp_path / "nerf", str(tmp_path / "drv")
+    os.makedirs(nerf)
+    os.symlink(src, nerf / "lego")
+    nerf = str(nerf)
     code = f"""
 import importlib, os, pkgutil, sys
 import numpy as np
@@ -227,9 +235,19 @@ for res in (1, 2):
     assert [c.image.shape for c in cams] == [(3, 30 // res, 40 // res)] * 3
 convert.resize_copies({str(jscene)!r})
 visualize.main(["-i", {jpg_in!r}, "-o", {jpg_heat!r}, "--random_encoder", "--device", "cpu"])
+from gaussmart_tpu_torch.scripts import (eval_synthetic, make_synthetic_scene, nerf_eval,
+                                         summary)
+make_synthetic_scene.main(["--out", {synth!r}, "--views", "2", "--width", "16", "--height",
+                           "12", "--sfm_points", "200", "--gt_points", "500", "--device", "cpu"])
+eval_synthetic.main(["--scene", {synth!r}, "--model", {model!r}, "--iteration", "7",
+                     "--downsample", "0.05"])
+assert nerf_eval.main(["--nerf", {nerf!r}, "--output_path", {drv!r}, "--scenes", "lego",
+                       "--iterations", "3", "--device", "cpu"]) == 0
+rows, _ = summary.main(["--root", {drv!r}])
+assert [(r["scene"], r["method"]) for r in rows] == [("lego", "ours_3")]
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "gaussmart_tpu", "transformers", "PIL", "cv2", "sklearn",
-    "matplotlib"))
+    "matplotlib", "pandas", "scripts"))
 assert not bad, bad
 print("CLEAN")
 """
@@ -251,6 +269,9 @@ print("CLEAN")
     assert Image.open(jpg_heat).format == "JPEG" and Image.open(jpg_heat).size == (40, 30)
     assert Image.open(jscene / "images_4" / "00001.jpg").size == (10, 7)
     assert os.path.exists(os.path.join(seg_out, "segments", "point_cloud", "segment_indices.npy"))
+    assert os.path.exists(os.path.join(synth, "gt_surface_points.npy"))
+    assert os.path.exists(os.path.join(model, "synthetic_eval.json"))
+    assert os.path.exists(os.path.join(drv, "lego", "test", "ours_3", "renders", "00000.png"))
 
 
 def test_cli_refuses_what_this_slice_does_not_serve(tmp_path, monkeypatch):
