@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, mesh-export, eval,
-semantic-preprocessing and benchmark-evaluation paths, on one device and
-over device slots, on one CUDA card; check them.
+semantic-preprocessing, benchmark-evaluation and trajectory-video paths,
+on one device and over device slots, on one CUDA card; check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -139,6 +139,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      job, its output files, each one's peak memory; all killed if the
      host's free memory falls under DRIVER_MEM_FLOOR_GIB), and the summary
      over their results.
+ 12. the trajectory videos (scripts/bench_video.py runs it alone):
+     render_cli --render_path --skip_train --skip_test --skip_mesh on the
+     phase-4 model (TRAJ_FRAMES frames of the ellipse path at 776x584
+     through K1, counted; its stages by the host clock, each K1 call
+     between CUDA events); its three videos, written by the port's MPEG-4
+     Part 2 encoder (io/video.py, csrc/imagecodec.cpp), read back by
+     io/video.read_mp4_info as TRAJ_FRAMES I-VOPs at 776x584 and TRAJ_FPS;
+     each re-encoded from the files export_image wrote (renders/*.png,
+     vis/normal_*.png, vis/depth_*.tiff through render_cli's turbo
+     mapping) equal to it to the byte, the encoder timed there; the
+     integer-only fixtures of tests/torch_data/video encoded to their
+     committed sha256 (the bits of the build whose files cv2 decoded).
 N_SLOTS slots on one card measure the cost of the two-pass fold, not
 scaling across cards.
 Each path's kernel launch counts are set to 0 just before it runs and read
@@ -157,6 +169,7 @@ import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -218,9 +231,11 @@ SHARDED_TOL = 5e-4        # Gaussian-sharded vs single-device renders (test_para
 ROW_TOL = 1e-5            # row-sharded vs single-device dense render
 # the mesh phase: a sphere of MESH_SPLATS surfels of one grey seen by
 # MESH_VIEWS cameras on a ring; the unbounded run's resolution is cut from
-# render_cli's default 1024 to keep the script within its time limit
+# render_cli's default 1024 to keep the script within its time limit (512
+# took 79 s of host time on the H100's machine; 256 holds the same checks,
+# which scale with the voxel)
 MESH_SPLATS, MESH_VIEWS, MESH_RING, MESH_GREY = 100_000, 16, 4.0, 0.6
-UNBOUNDED_RES = 512
+UNBOUNDED_RES = 256
 # the median depth (2DGS's setting for bounded objects, as DTU): the mean
 # depth of a pixel on a silhouette blends the surfels along its grazing
 # ray, which floats surface fragments up to ~0.07 inside the sphere
@@ -294,6 +309,16 @@ DTU_MM_PER_UNIT = 200.0    # the mesh scan's scale_mat: DTU's normalised sphere 
 DRIVER_MEM_FLOOR_GIB = 8.0  # the drivers are killed if the host's free memory falls below it
 DRIVER_RING_VIEWS = 16    # ring_cameras around a sphere of surfels: M360, NeRF, TnT
 DRIVER_NERF_SIZE, DRIVER_TNT_SIZE = (800, 800), (960, 540)
+# phase 12: render_cli --render_path on the phase-4 model: render_cli's
+# 240-frame ellipse trajectory through K1 and its three videos, written by
+# the port's MPEG-4 Part 2 encoder (io/video.py); each re-encoded from the
+# files export_image wrote must equal it to the byte, and the integer-only
+# fixtures must encode to the digests of tests/torch_data/video, which this
+# encoder gave where cv2 decoded the files (scripts/make_video_digests.py)
+TRAJ_FRAMES, TRAJ_FPS = 240, 30
+VIDEO_NAMES = ("render_traj.mp4", "depth_traj.mp4", "normal_traj.mp4")
+VIDEO_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_data",
+                          "video")
 
 
 def noise_texture(h: int, w: int) -> np.ndarray:
@@ -324,6 +349,14 @@ def textured_photo(h: int, w: int) -> np.ndarray:
     disc = (2 * x - w) ** 2 + (2 * y - h) ** 2 < (2 * min(h, w) // 3) ** 2
     base = np.where(disc[..., None], base // 2, base)
     return np.clip(base + noise_texture(h, w), 0, 255).astype(np.uint8)
+
+
+def video_fixture(n: int, h: int, w: int) -> np.ndarray:
+    """uint8 [n, h, w, 3]: a window sliding 2 columns per frame across
+    textured_photo(h, w + 2 n), in integer arithmetic: the frames of the
+    video fixtures whose mp4v digests tests/torch_data/video holds."""
+    photo = textured_photo(h, w + 2 * n)
+    return np.stack([photo[:, 2 * i:2 * i + w] for i in range(n)])
 
 
 def phase_wall(label, t0):
@@ -3633,6 +3666,140 @@ def time_mp_launches(launches, width, height, card):
     return sums
 
 
+# --- the trajectory videos (phase 12) ----------------------------------------------
+
+def read_tiff_f32(path) -> np.ndarray:
+    """The [H, W] float32 image of a one-strip TIFF as io/images.write_tiff_f32
+    writes it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"II*\x00":
+        raise ValueError(f"{path}: not a little-endian TIFF")
+    ifd = struct.unpack_from("<I", data, 4)[0]
+    tags = {}
+    for i in range(struct.unpack_from("<H", data, ifd)[0]):
+        tag, typ, _, val = struct.unpack_from("<HHII", data, ifd + 2 + 12 * i)
+        tags[tag] = val & 0xFFFF if typ == 3 else val
+    return np.frombuffer(data, "<f4", tags[256] * tags[257], tags[273]).reshape(
+        tags[257], tags[256])
+
+
+def traj_frames(traj, n=TRAJ_FRAMES):
+    """{video name: uint8 [n, H, W, 3]} rebuilt from what export_image wrote
+    in traj/: renders/*.png, vis/normal_*.png, and vis/depth_*.tiff through
+    render_cli's mapping (trajectory.depth_video_frames), quantized as
+    create_video quantizes (trajectory.frames_u8)."""
+    from gaussmart_tpu_torch.io.images import read_png
+    from gaussmart_tpu_torch.trajectory import depth_video_frames, frames_u8
+
+    def pngs(fmt):
+        return np.stack([read_png(os.path.join(traj, fmt.format(i))) for i in range(n)])
+
+    depths = [read_tiff_f32(os.path.join(traj, "vis", f"depth_{i:05d}.tiff"))
+              for i in range(n)]
+    return {"render_traj.mp4": pngs("renders/{:05d}.png"),
+            "depth_traj.mp4": frames_u8(depth_video_frames(depths)),
+            "normal_traj.mp4": pngs("vis/normal_{:05d}.png")}
+
+
+def video_fixture_digests():
+    """[(label, sha256 of the port's file, the committed sha256)] for each
+    fixture of tests/torch_data/video/digests.json."""
+    from gaussmart_tpu_torch.io import video
+    with open(os.path.join(VIDEO_DATA, "digests.json")) as f:
+        spec = json.load(f)
+    return [(f"{c['frames']} frames at {c['width']}x{c['height']}",
+             hashlib.sha256(video.video_bytes(video_fixture(c["frames"], c["height"],
+                                                            c["width"]),
+                                              spec["fps"])).hexdigest(),
+             c["sha256"]) for c in spec["cases"]]
+
+
+def render_path_videos(model, device, card):
+    """render_cli --render_path --skip_train --skip_test --skip_mesh on the
+    phase-4 model, counted (K1 once per trajectory frame) and timed (its
+    stages by the host clock; each K1 call between CUDA events); the three
+    videos read back as TRAJ_FRAMES I-VOPs at the trajectory's size and
+    TRAJ_FPS, each equal to the byte to its re-encode from the exported
+    files (the encoder timed there); then the fixtures' digests."""
+    import torch
+    from gaussmart_tpu_torch import render_cli
+    from gaussmart_tpu_torch.io import video
+    from gaussmart_tpu_torch.mesh.extract import GaussianExtractor
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    walls = {"reconstruction": 0.0, "export_image": 0.0, "create_video": 0.0}
+    k1 = []
+
+    def add(name):
+        def after(_args, _out, seconds):
+            walls[name] += seconds
+        return after
+
+    def between_events(orig):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(*a, **kw)
+            end.record()
+            k1.append((start, end))
+            return out
+        return call
+
+    zero_counts()
+    t0 = time.perf_counter()
+    with wrapped(GaussianExtractor, "reconstruction", add("reconstruction")), \
+            wrapped(GaussianExtractor, "export_image", add("export_image")), \
+            wrapped(render_cli, "create_video", add("create_video")), \
+            replaced(rt, "composite_tiles", between_events):
+        ex = render_cli.main(["-m", model, "--render_path", "--skip_train", "--skip_test",
+                              "--skip_mesh", "--device", str(device)])
+    counts = read_counts()
+    cli_s = time.perf_counter() - t0
+    k1_ms = [a.elapsed_time(b) for a, b in k1]
+    cam = ex.viewpoint_stack[0]
+    finite = all(bool(torch.isfinite(m).all())
+                 for m in ex.rgbmaps + ex.depthmaps + ex.normalmaps)
+    covered = float(np.mean([(d > 0).float().mean().item() for d in ex.depthmaps]))
+    print(f"[video] {card}: render_cli --render_path rendered {len(ex.rgbmaps)} trajectory "
+          f"frames at {cam.width}x{cam.height} and wrote the three videos in {cli_s:.3f} s: "
+          f"reconstruction {walls['reconstruction']:.3f} s, export_image "
+          f"{walls['export_image']:.3f} s, create_video x3 {walls['create_video']:.3f} s; "
+          f"launches {counts}; K1 through its wrapper on the path (CUDA events) median "
+          f"{np.median(k1_ms):.4f} ms, min {min(k1_ms):.4f}, max {max(k1_ms):.4f}, sum "
+          f"{sum(k1_ms):.2f} ms; finite {finite}; pixels with depth > 0 {covered:.3f}")
+    ok = (only(counts, raster_fwd=TRAJ_FRAMES) and len(k1_ms) == TRAJ_FRAMES and finite
+          and (cam.width, cam.height) == (WIDTH, HEIGHT))
+    traj = os.path.join(model, "traj", f"ours_{ITERATION}")
+    t0 = time.perf_counter()
+    frames = traj_frames(traj)
+    print(f"[video] the exported files read back and mapped in {time.perf_counter() - t0:.3f} s")
+    for name in VIDEO_NAMES:
+        path = os.path.join(traj, name)
+        info = video.read_mp4_info(path)
+        u8 = frames[name]
+        t0 = time.perf_counter()
+        vol, vops = video.encode_mp4v(u8, TRAJ_FPS)
+        enc_s = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            same = f.read() == video.mp4_bytes(vol, vops, u8.shape[2], u8.shape[1], TRAJ_FPS)
+        size = os.path.getsize(path)
+        print(f"[video] {card}: {name}: {info['codec']}, {info['n_samples']} I-VOPs at "
+              f"{info['width']}x{info['height']}, {info['fps']} fps, profile_and_level "
+              f"0x{info['profile_level']:02x}; {size} bytes ({size / len(u8):.1f} per frame, "
+              f"VOPs {min(info['sample_sizes'])}-{max(info['sample_sizes'])}); re-encoded from "
+              f"the exported files: byte-equal {same}, encode {1e3 * enc_s / len(u8):.3f} ms "
+              "per frame (one host thread)")
+        ok = ok and same and info["codec"] == "mp4v" and info["n_samples"] == TRAJ_FRAMES \
+            and (info["width"], info["height"]) == (WIDTH, HEIGHT) \
+            and info["fps"] == TRAJ_FPS and u8.shape == (TRAJ_FRAMES, HEIGHT, WIDTH, 3)
+    for label, got, want in video_fixture_digests():
+        print(f"[video] fixture {label}: sha256 {got}, committed {want}, equal {got == want}")
+        ok = ok and got == want
+    if not ok:
+        fail("[video] check failed")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3711,6 +3878,10 @@ def main(argv=None):
         phase8 = dino_viewer_path(root, args.seed, model, cams, state_s, state_t, cams_t,
                                   gts_t, dev)
         t_phase = phase_wall("8 (DINO, viewer)", t_phase)
+
+        # 12. render_cli --render_path on the phase-4 model: the trajectory videos
+        render_path_videos(model, dev, card)
+        t_phase = phase_wall("12 (render_path videos)", t_phase)
 
     # 6. timings
     time_serving(state_s, cams[0].params(dev), dev, card)

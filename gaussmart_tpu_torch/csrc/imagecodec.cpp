@@ -1,7 +1,8 @@
 // Host image codec of the port: a JPEG decoder equal to the bit to
 // libjpeg-turbo as Pillow and OpenCV call it, a JPEG encoder whose files
 // equal to the byte what Pillow's Image.save writes with no options, and
-// the PNG row unfilter.
+// the PNG row unfilter, and an intra-only MPEG-4 Part 2 (Simple Profile)
+// video encoder.
 //
 // Decoder: baseline, extended-Huffman and progressive 8-bit frames of 1
 // or 3 components, any integral sampling factors, restart intervals. It
@@ -26,6 +27,7 @@
 //   gm_jpeg_info(data, n, info[3], err, errlen)     width, height, channels
 //   gm_jpeg_decode(data, n, out, cap, err, errlen)  uint8 HxWxC into out
 //   gm_jpeg_encode(px, w, h, c, quality, com, comlen, &out, &len, err, errlen)
+//   gm_mp4v_encode(rgb, n, w, h, fps, quant, &out, &len, lens, err, errlen)
 //   gm_free(out)
 //   gm_png_unfilter(raw, h, stride, bpp, out, err, errlen)
 //   gm_resample_u8(in, outer, len, inner, out_len, k, taps, weights, out)
@@ -1577,6 +1579,322 @@ struct Encoder {
   }
 };
 
+// ---------------------------------------------------------------------------
+// MPEG-4 Part 2 video (ISO/IEC 14496-2), Simple Profile, intra-only
+// ---------------------------------------------------------------------------
+//
+// Every frame is an I-VOP at one fixed vop_quant: the H.263 quantizer
+// (quant_type 0), intra DC through the dct_dc_size VLCs with DC prediction
+// (intra_dc_vlc_thr 0), ac_pred_flag 0 (the plain zigzag), AC through the
+// intra TCOEF table and escape type 3 (fixed length) for every (last, run,
+// level) outside it; no resync markers, no data partitioning. RGB goes to
+// BT.601 limited-range YCbCr 4:2:0 in integer arithmetic (chroma from 2x2
+// sums), and the planes are padded to whole macroblocks by replicating the
+// last column and row; the VOL carries the true size.
+
+// MSB-first bit writer with no byte stuffing
+struct Mp4vBits {
+  std::vector<uint8_t>* out;
+  uint64_t acc = 0;
+  int bits = 0;
+  void put(uint32_t v, int n) {
+    if (n == 0) return;
+    acc = (acc << n) | (v & uint32_t((uint64_t(1) << n) - 1));
+    bits += n;
+    while (bits >= 8) {
+      out->push_back(uint8_t(acc >> (bits - 8)));
+      bits -= 8;
+    }
+  }
+  // next_start_code(): a 0, then 1s up to the byte boundary (a whole 0x7F
+  // when already aligned)
+  void stuff() {
+    put(0, 1);
+    if (bits) put((1u << (8 - bits)) - 1, 8 - bits);
+  }
+  void start_code(uint32_t code) {
+    put(0, 16);
+    put(0x100 | code, 16);
+  }
+};
+
+// intra TCOEF VLCs (Table B-16): codes and lengths without the sign bit,
+// entries ordered by (last, run, level); kMp4vIntraLast0 entries with last 0
+const uint16_t kMp4vIntraVlc[102][2] = {
+    {0x2, 2},   {0x6, 3},   {0xf, 4},   {0xd, 5},   {0xc, 5},   {0x15, 6},  {0x13, 6},
+    {0x12, 6},  {0x17, 7},  {0x1f, 8},  {0x1e, 8},  {0x1d, 8},  {0x25, 9},  {0x24, 9},
+    {0x23, 9},  {0x21, 9},  {0x21, 10}, {0x20, 10}, {0xf, 10},  {0xe, 10},  {0x7, 11},
+    {0x6, 11},  {0x20, 11}, {0x21, 11}, {0x50, 12}, {0x51, 12}, {0x52, 12}, {0xe, 4},
+    {0x14, 6},  {0x16, 7},  {0x1c, 8},  {0x20, 9},  {0x1f, 9},  {0xd, 10},  {0x22, 11},
+    {0x53, 12}, {0x55, 12}, {0xb, 5},   {0x15, 7},  {0x1e, 9},  {0xc, 10},  {0x56, 12},
+    {0x11, 6},  {0x1b, 8},  {0x1d, 9},  {0xb, 10},  {0x10, 6},  {0x22, 9},  {0xa, 10},
+    {0xd, 6},   {0x1c, 9},  {0x8, 10},  {0x12, 7},  {0x1b, 9},  {0x54, 12}, {0x14, 7},
+    {0x1a, 9},  {0x57, 12}, {0x19, 8},  {0x9, 10},  {0x18, 8},  {0x23, 11}, {0x17, 8},
+    {0x19, 9},  {0x18, 9},  {0x7, 10},  {0x58, 12}, {0x7, 4},   {0xc, 6},   {0x16, 8},
+    {0x17, 9},  {0x6, 10},  {0x5, 11},  {0x4, 11},  {0x59, 12}, {0xf, 6},   {0x16, 9},
+    {0x5, 10},  {0xe, 6},   {0x4, 10},  {0x11, 7},  {0x24, 11}, {0x10, 7},  {0x25, 11},
+    {0x13, 7},  {0x5a, 12}, {0x15, 8},  {0x5b, 12}, {0x14, 8},  {0x13, 8},  {0x1a, 8},
+    {0x15, 9},  {0x14, 9},  {0x13, 9},  {0x12, 9},  {0x11, 9},  {0x26, 11}, {0x27, 11},
+    {0x5c, 12}, {0x5d, 12}, {0x5e, 12}, {0x5f, 12}};
+constexpr int kMp4vIntraLast0 = 67;
+// the largest level of each run in the table, last 0 then last 1
+const uint8_t kMp4vIntraMaxLevel[2][21] = {
+    {27, 10, 5, 4, 3, 3, 3, 3, 2, 2, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0},
+    {8, 3, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1}};
+constexpr uint32_t kMp4vEscape = 0x3;  // 0000011
+constexpr int kMp4vEscapeLen = 7;
+// MCBPC of an intra macroblock (mb_type 3) by cbpc; CBPY of an intra
+// macroblock by cbpy (Tables B-6, B-8)
+const uint8_t kMp4vMcbpc[4][2] = {{1, 1}, {1, 3}, {2, 3}, {3, 3}};
+const uint8_t kMp4vCbpy[16][2] = {{3, 4}, {5, 5}, {4, 5}, {9, 4}, {3, 5}, {7, 4},
+                                  {2, 6}, {11, 4}, {2, 5}, {3, 6}, {5, 4}, {10, 4},
+                                  {4, 4}, {8, 4}, {6, 4}, {3, 2}};
+// dct_dc_size VLCs, sizes 0..12 (Tables B-13, B-14)
+const uint8_t kMp4vDcLuma[13][2] = {{3, 3}, {3, 2}, {2, 2}, {2, 3}, {1, 3}, {1, 4}, {1, 5},
+                                    {1, 6}, {1, 7}, {1, 8}, {1, 9}, {1, 10}, {1, 11}};
+const uint8_t kMp4vDcChroma[13][2] = {{3, 2}, {2, 2}, {1, 2}, {1, 3}, {1, 4}, {1, 5}, {1, 6},
+                                      {1, 7}, {1, 8}, {1, 9}, {1, 10}, {1, 11}, {1, 12}};
+
+// dc_scaler of the H.263 quantizer (Table 7-1)
+int mp4v_dc_scaler(int qp, bool luma) {
+  if (qp <= 4) return 8;
+  if (luma) return qp <= 8 ? 2 * qp : (qp <= 24 ? qp + 8 : 2 * qp - 16);
+  return qp <= 24 ? (qp + 13) / 2 : qp - 6;
+}
+
+// Simple Profile level by macroblocks per VOP (L1 99, L2-L3 396, L4a 1200,
+// L5 1620, L6 3600); past L6 its indication stays, as the highest level
+int mp4v_profile_level(int mbs) {
+  if (mbs <= 99) return 0x01;
+  if (mbs <= 396) return 0x02;
+  if (mbs <= 1200) return 0x04;
+  if (mbs <= 1620) return 0x05;
+  return 0x06;
+}
+
+struct Mp4vEncoder {
+  int W, H, fps, qp;
+  int mbw, mbh, tbits;
+  std::vector<uint8_t> out;
+  std::vector<uint8_t> planes[3];  // Y (16 mbw x 16 mbh), Cb, Cr (8 mbw x 8 mbh)
+  std::vector<int> dc[3];          // reconstructed DC of each block, for prediction
+  int tab[2][21][28];              // (last, run, level) -> table index, -1 outside
+
+  void init() {
+    mbw = (W + 15) / 16;
+    mbh = (H + 15) / 16;
+    tbits = 1;
+    while ((1 << tbits) < fps) ++tbits;
+    for (int c = 0; c < 3; ++c) {
+      int s = c == 0 ? 16 : 8;
+      planes[c].assign(size_t(s * mbw) * (s * mbh), 0);
+      dc[c].assign(size_t(s / 8 * mbw) * (s / 8 * mbh), 0);
+    }
+    std::memset(tab, -1, sizeof(tab));
+    int i = 0;
+    for (int last = 0; last < 2; ++last)
+      for (int run = 0; run < 21; ++run)
+        for (int lv = 1; lv <= kMp4vIntraMaxLevel[last][run]; ++lv) tab[last][run][lv] = i++;
+  }
+
+  void header() {
+    Mp4vBits b{&out};
+    b.start_code(0xB0);  // visual_object_sequence
+    b.put(mp4v_profile_level(mbw * mbh), 8);
+    b.start_code(0xB5);  // visual_object
+    b.put(0, 1);         // is_visual_object_identifier
+    b.put(1, 4);         // visual_object_type: video
+    b.put(0, 1);         // video_signal_type
+    b.stuff();
+    b.start_code(0x00);  // video_object 0
+    b.start_code(0x20);  // video_object_layer 0
+    b.put(0, 1);         // random_accessible_vol
+    b.put(1, 8);         // video_object_type_indication: Simple Object
+    b.put(0, 1);         // is_object_layer_identifier
+    b.put(1, 4);         // aspect_ratio_info: square pixels
+    b.put(1, 1);         // vol_control_parameters
+    b.put(1, 2);         // chroma_format 4:2:0
+    b.put(1, 1);         // low_delay: no B-VOPs
+    b.put(0, 1);         // vbv_parameters
+    b.put(0, 2);         // video_object_layer_shape: rectangular
+    b.put(1, 1);
+    b.put(uint32_t(fps), 16);  // vop_time_increment_resolution
+    b.put(1, 1);
+    b.put(1, 1);               // fixed_vop_rate
+    b.put(1, tbits);           // fixed_vop_time_increment: one tick per VOP
+    b.put(1, 1);
+    b.put(uint32_t(W), 13);
+    b.put(1, 1);
+    b.put(uint32_t(H), 13);
+    b.put(1, 1);
+    b.put(0, 1);  // interlaced
+    b.put(1, 1);  // obmc_disable
+    b.put(0, 1);  // sprite_enable
+    b.put(0, 1);  // not_8_bit
+    b.put(0, 1);  // quant_type: H.263
+    b.put(1, 1);  // complexity_estimation_disable
+    b.put(1, 1);  // resync_marker_disable
+    b.put(0, 1);  // data_partitioned
+    b.put(0, 1);  // scalability
+    b.stuff();
+  }
+
+  // BT.601 limited range in 16-bit fixed point; chroma from 2x2 sums
+  void convert(const uint8_t* rgb) {
+    const int PW = 16 * mbw, CW = 8 * mbw, CH = 8 * mbh;
+    uint8_t* Y = planes[0].data();
+    for (int y = 0; y < H; ++y) {
+      const uint8_t* p = rgb + size_t(y) * W * 3;
+      uint8_t* row = Y + size_t(y) * PW;
+      for (int x = 0; x < W; ++x, p += 3)
+        row[x] = uint8_t((16829 * p[0] + 33039 * p[1] + 6416 * p[2] + (16 << 16) + 32768) >> 16);
+      for (int x = W; x < PW; ++x) row[x] = row[W - 1];
+    }
+    for (int y = H; y < 16 * mbh; ++y)
+      std::memcpy(Y + size_t(y) * PW, Y + size_t(H - 1) * PW, PW);
+    const int cw = W / 2, ch = H / 2;
+    uint8_t* U = planes[1].data();
+    uint8_t* V = planes[2].data();
+    for (int y = 0; y < ch; ++y) {
+      const uint8_t* p0 = rgb + size_t(2 * y) * W * 3;
+      const uint8_t* p1 = p0 + size_t(W) * 3;
+      uint8_t* urow = U + size_t(y) * CW;
+      uint8_t* vrow = V + size_t(y) * CW;
+      for (int x = 0; x < cw; ++x, p0 += 6, p1 += 6) {
+        int r = p0[0] + p0[3] + p1[0] + p1[3];
+        int g = p0[1] + p0[4] + p1[1] + p1[4];
+        int bl = p0[2] + p0[5] + p1[2] + p1[5];
+        // offsets keep the sums positive, so the shifts round half up
+        urow[x] = uint8_t((-9714 * r - 19070 * g + 28784 * bl + (128 << 18) + (1 << 17)) >> 18);
+        vrow[x] = uint8_t((28784 * r - 24103 * g - 4681 * bl + (128 << 18) + (1 << 17)) >> 18);
+      }
+      for (int x = cw; x < CW; ++x) {
+        urow[x] = urow[cw - 1];
+        vrow[x] = vrow[cw - 1];
+      }
+    }
+    for (int y = ch; y < CH; ++y) {
+      std::memcpy(U + size_t(y) * CW, U + size_t(ch - 1) * CW, CW);
+      std::memcpy(V + size_t(y) * CW, V + size_t(ch - 1) * CW, CW);
+    }
+  }
+
+  // the block at block coordinates (bx, by) of plane c: quantized
+  // coefficients in natural order, the DC quantized by dc_scaler
+  void quantize(int c, int bx, int by, int dcs, int* q) {
+    const int stride = (c == 0 ? 16 : 8) * mbw;
+    int data[64];
+    for (int y = 0; y < 8; ++y) {
+      const uint8_t* row = &planes[c][size_t(by * 8 + y) * stride + size_t(bx) * 8];
+      for (int x = 0; x < 8; ++x) data[8 * y + x] = row[x];  // no level shift
+    }
+    fdct_islow(data);  // 8 times the DCT of the spec
+    q[0] = (data[0] + 4 * dcs) / (8 * dcs);  // the DC is >= 0
+    for (int i = 1; i < 64; ++i) {
+      int a = data[i] < 0 ? -data[i] : data[i];
+      int lv = std::min(((a + 4) >> 3) / (2 * qp), 2047);
+      q[i] = data[i] < 0 ? -lv : lv;
+    }
+  }
+
+  // the DC differential against the gradient-chosen neighbour (7.4.3.1);
+  // neighbours outside the VOP count as 1024
+  int dc_differential(int c, int bx, int by, int dcs, int qdc) {
+    const int bw = (c == 0 ? 2 : 1) * mbw;
+    std::vector<int>& d = dc[c];
+    int fa = bx > 0 ? d[size_t(by) * bw + bx - 1] : 1024;
+    int fb = bx > 0 && by > 0 ? d[size_t(by - 1) * bw + bx - 1] : 1024;
+    int fc = by > 0 ? d[size_t(by - 1) * bw + bx] : 1024;
+    int fp = std::abs(fa - fb) < std::abs(fb - fc) ? fc : fa;
+    d[size_t(by) * bw + bx] = std::min(qdc * dcs, 2047);
+    return qdc - (fp + dcs / 2) / dcs;
+  }
+
+  void put_dc(Mp4vBits& b, int diff, bool luma) {
+    int a = diff < 0 ? -diff : diff, size = 0;
+    while (a >> size) ++size;
+    const uint8_t* v = luma ? kMp4vDcLuma[size] : kMp4vDcChroma[size];
+    b.put(v[0], v[1]);
+    if (size == 0) return;
+    b.put(uint32_t(diff < 0 ? diff + (1 << size) - 1 : diff), size);
+    if (size > 8) b.put(1, 1);  // marker
+  }
+
+  void put_ac(Mp4vBits& b, const int* q) {
+    int lastpos = 0;
+    for (int k = 1; k < 64; ++k)
+      if (q[kNatural[k]]) lastpos = k;
+    int run = 0;
+    for (int k = 1; k <= lastpos; ++k) {
+      int v = q[kNatural[k]];
+      if (!v) {
+        ++run;
+        continue;
+      }
+      int last = k == lastpos, a = v < 0 ? -v : v;
+      int i = run <= 20 && a <= 27 ? tab[last][run][a] : -1;
+      if (i >= 0) {
+        b.put(kMp4vIntraVlc[i][0], kMp4vIntraVlc[i][1]);
+        b.put(v < 0, 1);
+      } else {  // escape type 3: last, run, marker, 12-bit level, marker
+        b.put(kMp4vEscape, kMp4vEscapeLen);
+        b.put(3, 2);
+        b.put(uint32_t(last), 1);
+        b.put(uint32_t(run), 6);
+        b.put(1, 1);
+        b.put(uint32_t(v) & 0xFFF, 12);
+        b.put(1, 1);
+      }
+      run = 0;
+    }
+  }
+
+  // one I-VOP for frame `index` (vop_time_increment_resolution = fps,
+  // one tick per frame)
+  void vop(const uint8_t* rgb, int index) {
+    convert(rgb);
+    Mp4vBits b{&out};
+    b.start_code(0xB6);
+    b.put(0, 2);  // vop_coding_type: I
+    int secs = index / fps, prev = index > 0 ? (index - 1) / fps : 0;
+    for (int s = prev; s < secs; ++s) b.put(1, 1);  // modulo_time_base
+    b.put(0, 1);
+    b.put(1, 1);
+    b.put(uint32_t(index % fps), tbits);  // vop_time_increment
+    b.put(1, 1);
+    b.put(1, 1);  // vop_coded
+    b.put(0, 3);  // intra_dc_vlc_thr: always the DC VLCs
+    b.put(uint32_t(qp), 5);
+    const int dcs_y = mp4v_dc_scaler(qp, true), dcs_c = mp4v_dc_scaler(qp, false);
+    int q[6][64], diff[6];
+    for (int my = 0; my < mbh; ++my) {
+      for (int mx = 0; mx < mbw; ++mx) {
+        int cbp = 0;
+        for (int k = 0; k < 6; ++k) {
+          int c = k < 4 ? 0 : k - 3;
+          int bx = k < 4 ? 2 * mx + (k & 1) : mx, by = k < 4 ? 2 * my + (k >> 1) : my;
+          int dcs = k < 4 ? dcs_y : dcs_c;
+          quantize(c, bx, by, dcs, q[k]);
+          diff[k] = dc_differential(c, bx, by, dcs, q[k][0]);
+          for (int i = 1; i < 64; ++i)
+            if (q[k][i]) {
+              cbp |= 1 << (5 - k);
+              break;
+            }
+        }
+        b.put(kMp4vMcbpc[cbp & 3][0], kMp4vMcbpc[cbp & 3][1]);  // mb_type 3
+        b.put(0, 1);                                           // ac_pred_flag
+        b.put(kMp4vCbpy[cbp >> 2][0], kMp4vCbpy[cbp >> 2][1]);
+        for (int k = 0; k < 6; ++k) {
+          put_dc(b, diff[k], k < 4);
+          if (cbp & (1 << (5 - k))) put_ac(b, q[k]);
+        }
+      }
+    }
+    b.stuff();
+  }
+};
+
 void set_err(char* err, size_t errlen, const std::string& msg) {
   if (!err || errlen == 0) return;
   size_t k = std::min(errlen - 1, msg.size());
@@ -1636,6 +1954,45 @@ int gm_jpeg_encode(const uint8_t* px, int w, int h, int c, int quality, const ui
     enc.com = com;
     enc.comlen = comlen;
     enc.run();
+    uint8_t* buf = static_cast<uint8_t*>(std::malloc(enc.out.size()));
+    if (!buf) fail("out of memory");
+    std::memcpy(buf, enc.out.data(), enc.out.size());
+    *out = buf;
+    *outlen = enc.out.size();
+    return 0;
+  } catch (const CodecError& e) {
+    set_err(err, errlen, e.msg);
+  } catch (const std::bad_alloc&) {
+    set_err(err, errlen, "out of memory");
+  }
+  return 1;
+}
+
+// MPEG-4 Part 2 video: n RGB frames of w x h (even) into the VOS + VO + VOL
+// headers and one I-VOP per frame, concatenated in one buffer (free with
+// gm_free); lens[0] is the headers' length, lens[1 + i] frame i's
+int gm_mp4v_encode(const uint8_t* rgb, int n, int w, int h, int fps, int quant,
+                   uint8_t** out, size_t* outlen, size_t* lens, char* err, size_t errlen) {
+  try {
+    if (n < 1) fail("no frames to encode");
+    if (w < 2 || h < 2 || w > 8190 || h > 8190 || (w | h) & 1)
+      fail("MPEG-4 frame sizes are even, 2..8190");
+    if (fps < 1 || fps > 65535) fail("MPEG-4 frame rates are whole numbers 1..65535");
+    if (quant < 1 || quant > 31) fail("vop_quant is 1..31");
+    Mp4vEncoder enc;
+    enc.W = w;
+    enc.H = h;
+    enc.fps = fps;
+    enc.qp = quant;
+    enc.init();
+    enc.header();
+    lens[0] = enc.out.size();
+    const size_t frame = size_t(w) * h * 3;
+    for (int i = 0; i < n; ++i) {
+      size_t before = enc.out.size();
+      enc.vop(rgb + frame * i, i);
+      lens[1 + i] = enc.out.size() - before;
+    }
     uint8_t* buf = static_cast<uint8_t*>(std::malloc(enc.out.size()));
     if (!buf) fail("out of memory");
     std::memcpy(buf, enc.out.data(), enc.out.size());

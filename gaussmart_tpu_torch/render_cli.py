@@ -20,16 +20,13 @@ import os
 import sys
 from argparse import ArgumentParser
 
-import numpy as np
-
 from gaussmart_tpu_torch.config import (ModelParams, PipelineParams, add_group_args,
                                         extract_group, get_combined_args)
 from gaussmart_tpu_torch.mesh.extract import GaussianExtractor
 from gaussmart_tpu_torch.mesh.meshing import post_process_mesh, save_mesh_ply
 from gaussmart_tpu_torch.runtime import resolve_device, setup
 from gaussmart_tpu_torch.scene import Scene
-from gaussmart_tpu_torch.trajectory import (create_video, generate_path,
-                                            require_video_encoder, turbo)
+from gaussmart_tpu_torch.trajectory import create_video, depth_video_frames, generate_path
 
 
 def build_parser() -> ArgumentParser:
@@ -100,8 +97,6 @@ def main(argv=None):
         extractor.export_image(test_dir)
 
     if args.render_path:
-        # the encoder is checked before any frame is rendered
-        require_video_encoder()
         print("render videos ...")
         traj_dir = os.path.join(args.model_path, "traj", f"ours_{it}")
         cam_traj = generate_path(scene.get_train_cameras(), n_frames=240)
@@ -111,17 +106,7 @@ def main(argv=None):
                      os.path.join(traj_dir, "render_traj.mp4"))
         # depth: log curve with [3, 97] percentile limits from frame 0,
         # turbo-coloured; normals map [-1,1] -> [0,1]
-        d0 = extractor.depthmaps[0][0].cpu().numpy()
-        pos = d0[d0 > 0]
-        lims = np.percentile(pos if pos.size else np.ones(1), [3, 97])
-        lo, hi = np.log(np.maximum(lims, 1e-6))
-
-        def depth_frame(d):
-            x = np.log(np.maximum(d[0].cpu().numpy(), 1e-6))
-            x = np.clip((x - min(lo, hi)) / max(abs(hi - lo), 1e-9), 0, 1)
-            return turbo(x)
-
-        create_video([depth_frame(d) for d in extractor.depthmaps],
+        create_video(depth_video_frames([d[0].cpu().numpy() for d in extractor.depthmaps]),
                      os.path.join(traj_dir, "depth_traj.mp4"))
         create_video([n.permute(1, 2, 0).cpu().numpy() * 0.5 + 0.5
                       for n in extractor.normalmaps],

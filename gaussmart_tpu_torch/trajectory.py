@@ -4,19 +4,19 @@
 viewmatrix/focus_point_fn/transform_poses_pca/generate_ellipse_path follow
 the published Mip-NeRF 360 ellipse-path algorithm (Google's multinerf,
 Apache-2.0), the same third-party-derived math as the JAX package's copy.
-Images are saved through io/images.py; videos through cv2, imported only
-when a video is written (`require_video_encoder` checks for it first);
-depth frames are coloured with a numpy copy of matplotlib's turbo map.
+Images are saved through io/images.py, videos through io/video.py (the
+port's MPEG-4 Part 2 encoder; no OpenCV); depth frames are coloured with a
+numpy copy of matplotlib's turbo map.
 """
 from __future__ import annotations
 
-import os
 from typing import List
 
 import numpy as np
 
 from gaussmart_tpu_torch.cameras import Camera
 from gaussmart_tpu_torch.io.images import write_png, write_tiff_f32
+from gaussmart_tpu_torch.io.video import write_video
 
 
 def normalize(x):
@@ -198,32 +198,33 @@ def turbo(x: np.ndarray) -> np.ndarray:
     return TURBO.take(np.clip(xa.astype(int), 0, len(TURBO) - 1), axis=0)
 
 
-def require_video_encoder():
-    """Raise unless OpenCV, the port's one video encoder, can be imported."""
-    try:
-        import cv2  # noqa: F401
-    except ImportError as e:
-        raise RuntimeError("--render_path writes mp4 videos through OpenCV (cv2), "
-                           "which is not installed: no video encoder") from e
+def depth_video_frames(depths: List[np.ndarray]) -> List[np.ndarray]:
+    """--render_path's depth frames from [H, W] depth maps: the log depth
+    between the 3rd and 97th percentiles of frame 0's positive depths,
+    turbo-coloured (RGB in [0, 1])."""
+    pos = depths[0][depths[0] > 0]
+    lims = np.percentile(pos if pos.size else np.ones(1), [3, 97])
+    lo, hi = np.log(np.maximum(lims, 1e-6))
+
+    def frame(d):
+        x = np.log(np.maximum(d, 1e-6))
+        return turbo(np.clip((x - min(lo, hi)) / max(abs(hi - lo), 1e-9), 0, 1))
+
+    return [frame(d) for d in depths]
+
+
+def frames_u8(frames: List[np.ndarray]) -> np.ndarray:
+    """RGB frames in [0, 1] as uint8 [n, H, W, 3], truncated as the JAX
+    package's create_video and save_img_u8 quantize."""
+    h, w = np.shape(frames[0])[:2]
+    u8 = np.empty((len(frames), h, w, 3), np.uint8)
+    for i, f in enumerate(frames):
+        u8[i] = np.clip(np.asarray(f) * 255, 0, 255).astype(np.uint8)
+    return u8
 
 
 def create_video(frames: List[np.ndarray], path: str, fps: int = 30):
-    """Video export via cv2: H.264 (avc1) where the build provides an
-    encoder, else MPEG-4 part 2 (mp4v)."""
-    import cv2
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    h, w = frames[0].shape[:2]
-    writer = None
-    for codec in ("avc1", "mp4v"):
-        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*codec), fps,
-                                 (w, h))
-        if writer.isOpened():
-            break
-        writer.release()
-        writer = None
-    if writer is None:
-        raise RuntimeError(f"no usable mp4 encoder for {path}")
-    for f in frames:
-        u8 = np.clip(np.asarray(f) * 255, 0, 255).astype(np.uint8)
-        writer.write(cv2.cvtColor(u8, cv2.COLOR_RGB2BGR))
-    writer.release()
+    """Write RGB frames in [0, 1] as an MP4 video: frames_u8, then MPEG-4
+    Part 2 (mp4v), every frame intra-coded at io/video.VOP_QUANT, through
+    the port's own encoder (io/video.py) on every machine."""
+    write_video(path, frames_u8(frames), fps)

@@ -4,7 +4,7 @@ contraction, marching tetrahedra (numpy body and the native core built
 into build/), post-processing and PLY bytes, the extractor's bounded and
 unbounded meshes on the same maps, and render_cli's mesh export end to
 end on a small sphere model; the --render_path repairs (turbo map, the
-video encoder checked first)."""
+videos written without OpenCV)."""
 import hashlib
 import json
 import os
@@ -445,10 +445,21 @@ def test_turbo_table_matches_matplotlib(rng):
         np.testing.assert_array_equal(ttraj.turbo(a), matplotlib.colormaps["turbo"](a)[..., :3])
 
 
-def test_render_path_without_cv2_raises_before_rendering(tmp_path, rng, monkeypatch):
+def test_render_path_without_cv2_writes_the_three_videos(tmp_path, rng, monkeypatch):
+    """With cv2 unimportable, --render_path writes the three videos, 240
+    I-VOPs each; each one equals to the byte the video re-encoded from the
+    files export_image wrote (chip_smoke.py's check on the card)."""
+    import chip_smoke
+    from gaussmart_tpu_torch.io import video
     model, _ = sphere_model_dir(str(tmp_path), rng, n=200)
     monkeypatch.setitem(sys.modules, "cv2", None)      # import cv2 fails
-    with pytest.raises(RuntimeError, match="no video encoder"):
-        render_cli.main(["-m", model, "--device", "cpu", "--skip_mesh", "--skip_train",
-                         "--skip_test", "--render_path"])
-    assert not os.path.exists(os.path.join(model, "traj"))
+    render_cli.main(["-m", model, "--device", "cpu", "--skip_mesh", "--skip_train",
+                     "--skip_test", "--render_path"])
+    traj = os.path.join(model, "traj", "ours_7")
+    sources = chip_smoke.traj_frames(traj)
+    for name in chip_smoke.VIDEO_NAMES:
+        info = video.read_mp4_info(os.path.join(traj, name))
+        assert (info["n_samples"], info["fps"], info["width"], info["height"]) == (
+            240, 30, W, H), name
+        with open(os.path.join(traj, name), "rb") as f:
+            assert f.read() == video.video_bytes(sources[name]), name

@@ -1,7 +1,8 @@
 """The serving slice end to end: a seeded trained-model directory rendered by
 the JAX GaussianExtractor (dense backend) and by the port's render_cli on
 the CPU, compared image by image; the port imports neither jax nor
-gaussmart_tpu (nor PIL, cv2 or matplotlib); the CLI's refusals."""
+gaussmart_tpu (nor PIL, cv2 or matplotlib); the CLI's refusals; the
+trajectory videos written without OpenCV."""
 import json
 import os
 import subprocess
@@ -25,12 +26,15 @@ from gaussmart_tpu.scene import Scene as JScene
 from gaussmart_tpu_torch import render_cli
 from gaussmart_tpu_torch import trajectory as ttraj
 from gaussmart_tpu_torch.config import ModelParams
+from gaussmart_tpu_torch.io.video import read_mp4_info
 from gaussmart_tpu_torch.scene import Scene
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ITER = 7
 W, H = 64, 48
+VIDEO_NAMES = ("render_traj.mp4", "depth_traj.mp4", "normal_traj.mp4")
+TRAJ_MAP_FLOOR_DB = 25.0    # the depth and normal videos' floor, dB (see its test)
 
 
 def _model_dir(root, seed=0, n=150, capacity=256):
@@ -128,7 +132,7 @@ def test_cli_renders_match_jax_extractor(tmp_path):
 def test_port_imports_no_jax(tmp_path):
     """Importing every module of the port (gaussmart_tpu_torch.parallel
     too) and chip_smoke.py, and running the render CLI (with its mesh
-    export), the metrics CLI, the train CLI (each also over 2 device slots:
+    export; --render_path's videos with cv2 unimportable), the metrics CLI, the train CLI (each also over 2 device slots:
     --shard_mode gaussian; dp and mp, with the DINO term on the random
     tower), the DINO heatmap CLI and the viewer CLI answering a scripted
     client, the segmentation pipeline (classical masks) and convert --help,
@@ -192,6 +196,13 @@ from gaussmart_tpu_torch import render_cli, train
 render_cli.main(["-m", {model!r}, "--device", "cpu", "--skip_test", "--mesh_res", "64"])
 render_cli.main(["-m", {model!r}, "--skip_mesh", "--device", "cpu", "--skip_train",
                  "--n_devices", "2", "--shard_mode", "gaussian"])
+sys.modules["cv2"] = None      # import cv2 fails: the videos need no OpenCV
+render_cli.main(["-m", {model!r}, "--skip_mesh", "--device", "cpu", "--skip_train",
+                 "--skip_test", "--render_path"])
+del sys.modules["cv2"]
+from gaussmart_tpu_torch.io.video import read_mp4_info
+for name in ("render_traj.mp4", "depth_traj.mp4", "normal_traj.mp4"):
+    assert read_mp4_info(os.path.join({model!r}, "traj", "ours_{ITER}", name))["n_samples"] == 240
 from gaussmart_tpu_torch.eval import metrics_cli
 metrics_cli.main(["-m", {model!r}, "--device", "cpu"])
 args = ["-s", {src!r}, "--sh_degree", "1", "--iterations", "3", "--test_iterations", "3",
@@ -276,13 +287,16 @@ print("CLEAN")
 
 def test_cli_refuses_what_this_slice_does_not_serve(tmp_path, monkeypatch):
     model, cfg = _model_dir(str(tmp_path), n=10)
-    # --render_path without OpenCV, the port's one video encoder: refused
-    # before any frame is rendered
+    # --render_path needs no OpenCV: with cv2 unimportable the port's own
+    # MPEG-4 Part 2 encoder writes the three videos, 240 I-VOPs each
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(RuntimeError, match="no video encoder"):
-        render_cli.main(["-m", model, "--device", "cpu", "--skip_mesh", "--skip_train",
-                         "--skip_test", "--render_path"])
+    render_cli.main(["-m", model, "--device", "cpu", "--skip_mesh", "--skip_train",
+                     "--skip_test", "--render_path"])
     monkeypatch.delitem(sys.modules, "cv2")
+    for name in VIDEO_NAMES:
+        info = read_mp4_info(os.path.join(model, "traj", f"ours_{ITER}", name))
+        assert (info["codec"], info["n_samples"], info["fps"]) == ("mp4v", 240, 30), name
+        assert (info["width"], info["height"]) == (W, H), name
     # a new model starts from the scene's point cloud as in the JAX package:
     # the same initial params and aux, camera order and extent, and copies
     jdir, tdir = str(tmp_path / "jax_new"), str(tmp_path / "port_new")
@@ -329,15 +343,31 @@ def test_trajectory_matches_jax(tmp_path):
 
 def test_cli_render_path_writes_the_three_videos(tmp_path):
     """--render_path renders the 240-frame ellipse trajectory and writes
-    the colour, depth and normal videos (cv2), as the JAX CLI does."""
-    cv2 = pytest.importorskip("cv2")
+    the colour, depth and normal videos, as the JAX CLI does; cv2 decodes
+    each to 240 frames at 30 fps, and holds every frame against what
+    export_image wrote (the renders, the normal PNGs and the depth TIFFs
+    through the turbo mapping), at or above a floor and no lower than the
+    JAX package's file of the same frames at its worst. The renders are
+    smooth: test_torch_video.py's smooth floor. The turbo depth and normal
+    frames are flat saturated regions with sharp edges, where 4:2:0 chroma
+    bounds both writers: TRAJ_MAP_FLOOR_DB, 25 dB, under the worst frames
+    read on this model (depth: the port 30.03 dB, the JAX file 29.53;
+    normals: the port 27.57, the JAX file 27.17)."""
+    pytest.importorskip("cv2")
+    import chip_smoke
+    from test_torch_video import SMOOTH_FLOOR_DB, _decode, _psnr
     model, _ = _model_dir(str(tmp_path), n=10)
     render_cli.main(["-m", model, "--skip_mesh", "--device", "cpu",
                      "--render_path", "--skip_test"])
     traj = os.path.join(model, "traj", f"ours_{ITER}")
     assert os.path.exists(os.path.join(traj, "renders", "00239.png"))
-    for name in ("render_traj.mp4", "depth_traj.mp4", "normal_traj.mp4"):
-        cap = cv2.VideoCapture(os.path.join(traj, name))
-        n_frames = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
-        cap.release()
-        assert n_frames == 240, (name, n_frames)
+    sources = chip_smoke.traj_frames(traj)
+    floors = dict(zip(VIDEO_NAMES, (SMOOTH_FLOOR_DB, TRAJ_MAP_FLOOR_DB, TRAJ_MAP_FLOOR_DB)))
+    for name in VIDEO_NAMES:
+        frames, props = _decode(os.path.join(traj, name))
+        assert props == (240, W, H, 30) and len(frames) == 240, (name, props)
+        jpath = str(tmp_path / f"jax_{name}")
+        jtraj.create_video(list((sources[name] + 0.5) / 255), jpath)
+        worst = min(_psnr(a, b) for a, b in zip(frames, sources[name]))
+        jax_worst = min(_psnr(a, b) for a, b in zip(_decode(jpath)[0], sources[name]))
+        assert worst >= max(floors[name], jax_worst), (name, worst, jax_worst)
