@@ -984,21 +984,16 @@ def hold_determinism(steps):
 # --- the main paths ----------------------------------------------------------
 
 def zero_counts():
-    from gaussmart_tpu_torch.render import raster_tiled as rt
-    from gaussmart_tpu_torch.render import segsum
-    rt.launches = rt.bwd_launches = segsum.launches = 0
-    rt.seeded_launches = rt.seeded_bwd_launches = 0
+    from gaussmart_tpu_torch import logging_utils
+    logging_utils.collect()
 
 
 def read_counts():
     import torch
-    from gaussmart_tpu_torch.render import raster_tiled as rt
-    from gaussmart_tpu_torch.render import segsum
+    from gaussmart_tpu_torch import logging_utils
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    return {"raster_fwd": rt.launches, "raster_bwd": rt.bwd_launches,
-            "segsum": segsum.launches, "raster_fwd_seeded": rt.seeded_launches,
-            "raster_bwd_seeded": rt.seeded_bwd_launches}
+    return {k: logging_utils.counter(k) for k in logging_utils.LAUNCHES}
 
 
 def only(counts, **want):

@@ -12,6 +12,7 @@ from typing import Callable, Dict
 
 import torch
 
+from gaussmart_tpu_torch.logging_utils import is_tracing, span
 from gaussmart_tpu_torch.ops.image import l1_loss
 from gaussmart_tpu_torch.ops.ssim import ssim
 
@@ -62,10 +63,37 @@ def dino_term(image: torch.Tensor, gt: torch.Tensor,
         with torch.no_grad():
             cos = _cosine(encoder(image), encoder(gt))
         return lambda_dino * cos
-    e1 = encoder(image)
-    with torch.no_grad():
+    with span("losses.dino.render"):
+        if is_tracing():
+            held = []
+            e1 = _TowerMark.apply(encoder(_TowerMark.apply(image, held, False)), held, True)
+        else:
+            e1 = encoder(image)
+    with torch.no_grad(), span("losses.dino.target"):
         e2 = encoder(gt)
     return lambda_dino * (1.0 - _cosine(e1, e2))
+
+
+class _TowerMark(torch.autograd.Function):
+    """Identity that marks the DINO tower's backward while tracing: at the
+    tower's output (`opens`) its backward, the first of the tower's, opens
+    the span backward.dino (kept in `held`); at the tower's input, the
+    last, closes it."""
+
+    @staticmethod
+    def forward(ctx, x, held, opens):
+        ctx.held, ctx.opens = held, opens
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.opens:
+            s = span("backward.dino")
+            s.__enter__()
+            ctx.held.append(s)
+        elif ctx.held:
+            ctx.held.pop().__exit__(None, None, None)
+        return g, None, None
 
 
 def smooth_loss(disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:

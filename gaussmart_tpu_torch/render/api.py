@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Union
 import torch
 
 from gaussmart_tpu_torch.cameras import CameraParams
+from gaussmart_tpu_torch.logging_utils import span
 from gaussmart_tpu_torch.models.gaussians import GaussianState
 from gaussmart_tpu_torch.ops.depth_normal import depth_to_normal
 from gaussmart_tpu_torch.render import raster_common
@@ -124,8 +125,9 @@ def render_arrays(
                                          active, override_color if override_color is not None
                                          else [None] * n)]
     else:
-        prep = prep_of(xyz, scaling, rotation, opacity, features, active,
-                       override_color)
+        with span("render.preprocess"):
+            prep = prep_of(xyz, scaling, rotation, opacity, features, active,
+                           override_color)
     if backend.startswith("gaussian_sharded"):
         from gaussmart_tpu_torch.parallel.sharding import render_gaussian_sharded
         out = render_gaussian_sharded(
@@ -149,24 +151,25 @@ def render_arrays(
                               need_med_grad=(depth_ratio != 0.0))
 
     image, allmap = out["image"], out["allmap"]
+    with span("render.decode"):
 
-    # --- aux decode --------------------------------------------------------
-    render_alpha = allmap[1:2]
-    # view->world normals
-    render_normal = torch.einsum("chw,cd->dhw", allmap[2:5],
-                                 cam.world_view[:3, :3].T)
-    render_depth_median = allmap[5:6]
-    # masked division: guard the denominator (dividing then replacing NaN
-    # would leak NaN gradients at empty pixels)
-    has_alpha = render_alpha > 1e-12
-    render_depth_expected = torch.where(
-        has_alpha, allmap[0:1] / torch.where(has_alpha, render_alpha, 1.0), 0.0)
-    render_dist = allmap[6:7]
+        # --- aux decode --------------------------------------------------------
+        render_alpha = allmap[1:2]
+        # view->world normals
+        render_normal = torch.einsum("chw,cd->dhw", allmap[2:5],
+                                     cam.world_view[:3, :3].T)
+        render_depth_median = allmap[5:6]
+        # masked division: guard the denominator (dividing then replacing NaN
+        # would leak NaN gradients at empty pixels)
+        has_alpha = render_alpha > 1e-12
+        render_depth_expected = torch.where(
+            has_alpha, allmap[0:1] / torch.where(has_alpha, render_alpha, 1.0), 0.0)
+        render_dist = allmap[6:7]
 
-    surf_depth = (render_depth_expected * (1 - depth_ratio)
-                  + depth_ratio * render_depth_median)
-    surf_normal = depth_to_normal(cam, surf_depth).permute(2, 0, 1)
-    surf_normal = surf_normal * render_alpha.detach()
+        surf_depth = (render_depth_expected * (1 - depth_ratio)
+                      + depth_ratio * render_depth_median)
+        surf_normal = depth_to_normal(cam, surf_depth).permute(2, 0, 1)
+        surf_normal = surf_normal * render_alpha.detach()
 
     radii = [p.radius for p in prep] if chunked else prep.radius
     return {

@@ -51,6 +51,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from gaussmart_tpu_torch import kernels
+from gaussmart_tpu_torch.logging_utils import count, is_tracing, span
 from gaussmart_tpu_torch.render import segsum
 from gaussmart_tpu_torch.render.raster_common import (
     ALPHA_EPS, ALPHA_MAX, FAR_PLANE, FILTER_INV_SQUARE, NEAR_PLANE, T_EPS,
@@ -74,13 +75,6 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p] * 2)
 _SEEDED_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                         + [ctypes.c_void_p] * 3)
-
-# K1, K2, K3 and K4 launches in this process; chip_smoke.py zeroes them
-# before driving a main path and reads them after
-launches = 0
-bwd_launches = 0
-seeded_launches = 0
-seeded_bwd_launches = 0
 
 
 def tile_grid(width: int, height: int) -> Tuple[int, int]:
@@ -217,17 +211,19 @@ def binning(prep: Preprocessed, tiles_x: int, tiles_y: int) -> Binned:
     rx, ry = prep.rx, prep.ry
     valid = prep.valid & (rx > 0) & (ry > 0)
 
-    def span(lo, hi, n):
+    def tile_span(lo, hi, n):
         a = torch.clamp(torch.floor(lo / TILE), 0, n).to(torch.int64)
         b = torch.clamp(torch.floor(hi / TILE) + 1, 0, n).to(torch.int64)
         return a, b
 
-    tx0, tx1 = span(cx - rx, cx + rx, tiles_x)
-    ty0, ty1 = span(cy - ry, cy + ry, tiles_y)
+    tx0, tx1 = tile_span(cx - rx, cx + rx, tiles_x)
+    ty0, ty1 = tile_span(cy - ry, cy + ry, tiles_y)
     nx = torch.where(valid, tx1 - tx0, 0)
     ny = torch.where(valid, ty1 - ty0, 0)
     # the frame's one host sync: rect row and (splat, tile) pair counts
-    n_rows, n_rect = torch.stack([ny.sum(), (nx * ny).sum()]).tolist()
+    with span("render.binning.sync"):
+        n_rows, n_rect = torch.stack([ny.sum(), (nx * ny).sum()]).tolist()
+    count("render.rect_pairs", n_rect)
     if n_rect == 0:
         empty = torch.zeros(0, dtype=torch.int32, device=dev)
         return Binned(empty, torch.zeros(n_tiles, 2, dtype=torch.int32, device=dev), conics,
@@ -268,6 +264,8 @@ def binning(prep: Preprocessed, tiles_x: int, tiles_y: int) -> Binned:
         0, perm, torch.arange(n_rect, dtype=torch.int32, device=dev))
     first_row = torch.cat([row0, row0.new_full((1,), n_rows)])
     slot_starts = torch.cat([cum.new_zeros(1), cum])[first_row].to(torch.int32)
+    if is_tracing():
+        count("render.live_pairs", slot_starts[N])
     return Binned(entry_ids, tile_ranges.contiguous(), conics, inv_slots, slot_starts,
                   tile.to(torch.int32))
 
@@ -442,11 +440,7 @@ def composite_tiles(blob: torch.Tensor, conics: torch.Tensor, entry_ids: torch.T
                 stream)
     if err != 0:
         raise RuntimeError(f"raster_fwd launch failed with CUDA error {err}")
-    global launches, seeded_launches
-    if init is None:
-        launches += 1
-    else:
-        seeded_launches += 1
+    count("raster_fwd" if init is None else "raster_fwd_seeded", 1)
     return fb, ints
 
 
@@ -693,12 +687,8 @@ def composite_tiles_bwd(blob: torch.Tensor, entry_ids: torch.Tensor,
                 gi.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"raster_bwd launch failed with CUDA error {err}")
-    global bwd_launches, seeded_bwd_launches
-    if init is None:
-        bwd_launches += 1
-        return rows
-    seeded_bwd_launches += 1
-    return rows, gi
+    count("raster_bwd" if init is None else "raster_bwd_seeded", 1)
+    return rows if init is None else (rows, gi)
 
 
 def grad_reduce_mode() -> str:
@@ -785,10 +775,12 @@ class RasterCore(torch.autograd.Function):
         width, height, need_dist, need_med = ctx.meta
         if g_fb is None:
             return (None,) * 6
-        ct = g_fb[:CT].contiguous()
-        rows = composite_tiles_bwd(blob, b.entry_ids, b.tile_ranges, fb, ints, ct,
-                                   width, height, need_dist, need_med)
-        return (grad_reduce(rows, b.entry_ids, blob.shape[0], b, ints),) + (None,) * 5
+        with span("backward.raster"):
+            ct = g_fb[:CT].contiguous()
+            rows = composite_tiles_bwd(blob, b.entry_ids, b.tile_ranges, fb, ints, ct,
+                                       width, height, need_dist, need_med)
+            g_blob = grad_reduce(rows, b.entry_ids, blob.shape[0], b, ints)
+        return (g_blob,) + (None,) * 5
 
 
 class RasterCoreSeeded(torch.autograd.Function):
@@ -848,35 +840,37 @@ def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,
     `binned` = binning(prep, ...) lets a caller that composites the same
     prep twice bin it once."""
     tiles_x, tiles_y = tile_grid(width, height)
-    blob = build_blob(prep, means2d, width, height)
+    with span("render.preprocess"):
+        blob = build_blob(prep, means2d, width, height)
     if binned is None:
-        with torch.no_grad():
+        with torch.no_grad(), span("render.binning"):
             binned = binning(prep, tiles_x, tiles_y)
-    if init_state is None:
-        fb, _ = RasterCore.apply(blob, binned, width, height, need_dist_grad,
-                                 need_med_grad)
-    else:
-        h_pad, w_pad = tiles_y * TILE, tiles_x * TILE
+    with span("render.composite"):
+        if init_state is None:
+            fb, _ = RasterCore.apply(blob, binned, width, height, need_dist_grad,
+                                     need_med_grad)
+        else:
+            h_pad, w_pad = tiles_y * TILE, tiles_x * TILE
 
-        def pad_map(x, fill):   # flat [H*W] -> [1, H_pad, W_pad]
-            return torch.nn.functional.pad(x.reshape(1, height, width),
-                                           (0, w_pad - width, 0, h_pad - height),
-                                           value=fill)
-        zeros = blob.new_zeros(height * width)
-        init = torch.cat([pad_map(init_state["T"], 1.0),
-                          pad_map(init_state.get("M1", zeros), 0.0),
-                          pad_map(init_state.get("M2", zeros), 0.0)])
-        fb, _ = RasterCoreSeeded.apply(blob, init.contiguous(), binned, width, height,
-                                       need_dist_grad, need_med_grad)
-    maps = fb[:, :height, :width]
-    image = maps[0:3] + maps[10][None] * bg[:, None, None]
-    allmap = maps[[3, 4, 5, 6, 7, 8, 9]]
-    out = {"image": image, "allmap": allmap,
-           "n_dropped": torch.zeros((), dtype=torch.int32, device=fb.device)}
-    if return_raw:
-        flat = maps.reshape(CH, height * width)
-        out["raw"] = {"color": flat[0:3], "normal": flat[5:8], "depth": flat[3],
-                      "alpha": flat[4], "median": flat[8], "dist": flat[9],
-                      "T": flat[10], "M1": flat[11], "M2": flat[12],
-                      "min_test": flat[13].detach()}
+            def pad_map(x, fill):   # flat [H*W] -> [1, H_pad, W_pad]
+                return torch.nn.functional.pad(x.reshape(1, height, width),
+                                               (0, w_pad - width, 0, h_pad - height),
+                                               value=fill)
+            zeros = blob.new_zeros(height * width)
+            init = torch.cat([pad_map(init_state["T"], 1.0),
+                              pad_map(init_state.get("M1", zeros), 0.0),
+                              pad_map(init_state.get("M2", zeros), 0.0)])
+            fb, _ = RasterCoreSeeded.apply(blob, init.contiguous(), binned, width, height,
+                                           need_dist_grad, need_med_grad)
+        maps = fb[:, :height, :width]
+        image = maps[0:3] + maps[10][None] * bg[:, None, None]
+        allmap = maps[[3, 4, 5, 6, 7, 8, 9]]
+        out = {"image": image, "allmap": allmap,
+               "n_dropped": torch.zeros((), dtype=torch.int32, device=fb.device)}
+        if return_raw:
+            flat = maps.reshape(CH, height * width)
+            out["raw"] = {"color": flat[0:3], "normal": flat[5:8], "depth": flat[3],
+                          "alpha": flat[4], "median": flat[8], "dist": flat[9],
+                          "T": flat[10], "M1": flat[11], "M2": flat[12],
+                          "min_test": flat[13].detach()}
     return out

@@ -23,13 +23,10 @@ from typing import Optional
 import torch
 
 from gaussmart_tpu_torch import kernels
+from gaussmart_tpu_torch.logging_utils import count
 
 F = 20
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-
-# K5 launches in this process; chip_smoke.py zeroes it before driving a
-# main path and reads it after
-launches = 0
 
 
 def sorted_slot_starts(seg_ids: torch.Tensor, n_segments: int) -> torch.Tensor:
@@ -109,8 +106,7 @@ def segment_sum_gathered(rows: torch.Tensor, order: Optional[torch.Tensor],
             ptr(tile_limit), n, n_out, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"segsum launch failed with CUDA error {err}")
-    global launches
-    launches += 1
+    count("segsum", 1)
     return out
 
 

@@ -15,6 +15,7 @@ import torch
 
 from gaussmart_tpu_torch.cameras import CameraParams
 from gaussmart_tpu_torch.config import OptimizationParams
+from gaussmart_tpu_torch.logging_utils import span
 from gaussmart_tpu_torch.losses import photometric_loss, regularization_losses
 from gaussmart_tpu_torch.models.densify import (add_densification_stats,
                                                 densify_and_prune, reset_opacity)
@@ -56,7 +57,8 @@ def _loss_and_aux(params, means2d, aux_state, cam: CameraParams, gt_image,
         chunks = [_render_inputs(p, a) for p, a in zip(params, aux_state)]
         arrays = {k: [c[k] for c in chunks] for k in chunks[0]}
     else:
-        arrays = _render_inputs(params, aux_state)
+        with span("render.preprocess"):
+            arrays = _render_inputs(params, aux_state)
     pkg = render_arrays(
         cam,
         **arrays,
@@ -73,14 +75,17 @@ def _loss_and_aux(params, means2d, aux_state, cam: CameraParams, gt_image,
     )
     mark("render")
     image = pkg["render"]
-    loss, ll1 = photometric_loss(image, gt_image, opt.lambda_dssim)
-    dist_loss, normal_loss = regularization_losses(
-        pkg, iteration, opt.lambda_dist, opt.lambda_normal,
-        lambda_dist_ramp=opt.lambda_dist_ramp,
-        lambda_dist_clip=opt.lambda_dist_clip)
-    dino = torch.zeros((), dtype=torch.float32, device=image.device)
-    if dino_fn is not None:
-        dino = dino_fn(image, gt_image, iteration)
+    with span("losses.photometric"):
+        loss, ll1 = photometric_loss(image, gt_image, opt.lambda_dssim)
+    with span("losses.regularization"):
+        dist_loss, normal_loss = regularization_losses(
+            pkg, iteration, opt.lambda_dist, opt.lambda_normal,
+            lambda_dist_ramp=opt.lambda_dist_ramp,
+            lambda_dist_clip=opt.lambda_dist_clip)
+    with span("losses.dino"):
+        dino = torch.zeros((), dtype=torch.float32, device=image.device)
+        if dino_fn is not None:
+            dino = dino_fn(image, gt_image, iteration)
     total = loss + dist_loss + normal_loss + dino
     mark("losses")
     with torch.no_grad():
@@ -124,10 +129,12 @@ def _apply_update(params: GaussianParams, grads: GaussianParams, adam: AdamState
     step, skipped on densify iterations under adam_on_densify="drop".
     Returns (params, adam, aux_state)."""
     if iteration < opt.densify_until_iter:
-        aux_state = add_densification_stats(aux_state, means2d_grad, radii)
+        with span("update.stats"):
+            aux_state = add_densification_stats(aux_state, means2d_grad, radii)
     if not _drops_adam(opt, iteration, adam_on_densify):
-        lrs = group_lrs(opt, iteration, spatial_lr_scale)
-        params, adam = adam_step(params, grads, adam, lrs, aux_state.active)
+        with span("update.adam"):
+            lrs = group_lrs(opt, iteration, spatial_lr_scale)
+            params, adam = adam_step(params, grads, adam, lrs, aux_state.active)
     return params, adam, aux_state
 
 
@@ -152,21 +159,23 @@ def make_train_step(opt: OptimizationParams, *, sh_degree: int,
 
     def step(params: GaussianParams, adam: AdamState, aux_state: GaussianAux,
              cam: CameraParams, gt_image: torch.Tensor, iteration: int):
-        dev = params.xyz.device
-        bg = torch.tensor(bg_values, dtype=torch.float32, device=dev)
-        leaves = _leaves(params)
-        means2d = torch.zeros((params.xyz.shape[0], 2), dtype=torch.float32,
-                              device=dev, requires_grad=True)
-        total, extras = _loss_and_aux(leaves, means2d, aux_state, cam, gt_image,
-                                      iteration, opt, bg, sh_degree, depth_ratio,
-                                      backend, dino_fn, mark)
-        total.backward()
-        mark("backward")
-        params, adam, aux_state = _apply_update(
-            params, _grads(leaves), adam, aux_state, means2d.grad, extras["radii"],
-            iteration, opt, spatial_lr_scale, adam_on_densify)
-        metrics = _metrics(total, extras, aux_state.active.sum())
-        mark("adam")
+        with span("step", id=iteration):
+            dev = params.xyz.device
+            bg = torch.tensor(bg_values, dtype=torch.float32, device=dev)
+            leaves = _leaves(params)
+            means2d = torch.zeros((params.xyz.shape[0], 2), dtype=torch.float32,
+                                  device=dev, requires_grad=True)
+            total, extras = _loss_and_aux(leaves, means2d, aux_state, cam, gt_image,
+                                          iteration, opt, bg, sh_degree, depth_ratio,
+                                          backend, dino_fn, mark)
+            with span("backward"):
+                total.backward()
+            mark("backward")
+            params, adam, aux_state = _apply_update(
+                params, _grads(leaves), adam, aux_state, means2d.grad, extras["radii"],
+                iteration, opt, spatial_lr_scale, adam_on_densify)
+            metrics = _metrics(total, extras, aux_state.active.sum())
+            mark("adam")
         return params, adam, aux_state, metrics, iteration + 1
 
     return step
@@ -184,10 +193,11 @@ def make_densify_step(opt: OptimizationParams, *, extent: float):
     n_dropped)`` with the optimisation group's thresholds."""
 
     def densify(state, adam, generator: torch.Generator, use_size_prune: bool):
-        return densify_and_prune(
-            state, adam, max_grad=opt.densify_grad_threshold,
-            min_opacity=opt.opacity_cull, extent=extent,
-            percent_dense=opt.percent_dense, use_size_prune=use_size_prune,
-            generator=generator)
+        with span("densify"):
+            return densify_and_prune(
+                state, adam, max_grad=opt.densify_grad_threshold,
+                min_opacity=opt.opacity_cull, extent=extent,
+                percent_dense=opt.percent_dense, use_size_prune=use_size_prune,
+                generator=generator)
 
     return densify

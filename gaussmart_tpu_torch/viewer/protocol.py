@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from gaussmart_tpu_torch.cameras import MiniCam
+from gaussmart_tpu_torch.logging_utils import is_tracing, span
 from gaussmart_tpu_torch.ops.image import gradient_map
 
 # what a vanished or misbehaving client raises while its request is read:
@@ -113,30 +114,38 @@ def render_net_image(render_pkg, render_items, render_mode, camera):
     """Mode-selected viewer image [3,H,W]: RGB, Alpha, Normal, Depth, Edge
     or Curvature; a one-channel map is min-max normalised to grey."""
     output = render_items[render_mode].lower()
-    if output == "alpha":
-        net_image = render_pkg["rend_alpha"]
-    elif output == "normal":
-        net_image = (render_pkg["rend_normal"] + 1) / 2
-    elif output == "depth":
-        net_image = render_pkg["surf_depth"]
-    elif output == "edge":
-        net_image = gradient_map(render_pkg["render"])
-    elif output == "curvature":
-        net_image = gradient_map((render_pkg["rend_normal"] + 1) / 2)
-    else:
-        net_image = render_pkg["render"]
-    if net_image.shape[0] == 1:
-        lo, hi = net_image.min(), net_image.max()
-        norm = (net_image - lo) / torch.clamp_min(hi - lo, 1e-9)
-        net_image = torch.cat([norm] * 3, dim=0)
+    with span("frame.net_image"):
+        if output == "alpha":
+            net_image = render_pkg["rend_alpha"]
+        elif output == "normal":
+            net_image = (render_pkg["rend_normal"] + 1) / 2
+        elif output == "depth":
+            net_image = render_pkg["surf_depth"]
+        elif output == "edge":
+            net_image = gradient_map(render_pkg["render"])
+        elif output == "curvature":
+            net_image = gradient_map((render_pkg["rend_normal"] + 1) / 2)
+        else:
+            net_image = render_pkg["render"]
+        if net_image.shape[0] == 1:
+            lo, hi = net_image.min(), net_image.max()
+            norm = (net_image - lo) / torch.clamp_min(hi - lo, 1e-9)
+            net_image = torch.cat([norm] * 3, dim=0)
     return net_image
 
 
 def image_to_bytes(net_image: torch.Tensor) -> bytes:
     """[3,H,W] in [0,1] -> H*W*3 RGB bytes: clipped, scaled by 255 and
-    truncated on the image's device, moved to the host once as uint8."""
+    truncated on the image's device, moved to the host once as uint8.
+    While tracing, the wait for the device before the copy is its own span
+    (frame.to_host.sync)."""
     arr = (torch.clamp(net_image.detach(), 0, 1.0) * 255).to(torch.uint8)
-    return arr.permute(1, 2, 0).contiguous().cpu().numpy().tobytes()
+    with span("frame.to_host"):
+        arr = arr.permute(1, 2, 0).contiguous()
+        if is_tracing() and arr.is_cuda:
+            with span("frame.to_host.sync"):
+                torch.cuda.current_stream(arr.device).synchronize()
+        return arr.cpu().numpy().tobytes()
 
 
 def serve_frame(gui: NetworkGUI, render: Callable, render_items, verify: str,

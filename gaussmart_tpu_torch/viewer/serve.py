@@ -10,6 +10,7 @@ budget to set). Runs on cuda unless ``--device cpu``.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from argparse import ArgumentParser
 from typing import Optional
@@ -18,6 +19,7 @@ import torch
 
 from gaussmart_tpu_torch.config import (ModelParams, PipelineParams, add_group_args,
                                         extract_group, get_combined_args)
+from gaussmart_tpu_torch.logging_utils import span
 from gaussmart_tpu_torch.parallel.sharding import sharded_render_backend
 from gaussmart_tpu_torch.render.api import render
 from gaussmart_tpu_torch.runtime import resolve_device, setup
@@ -30,15 +32,19 @@ def frame_renderer(state, pipe: PipelineParams, white_background: bool, device,
     """``frame(cam, scaling_modifier)``: the render package of a viewer
     camera, for protocol.serve_frame. `state` is one GaussianState or,
     with `mesh`, the per-slot chunks of a Gaussian-sharded state, rendered
-    through the sharded fold."""
+    through the sharded fold. Each call is the root span ``frame`` (id: the
+    renderer's request count), holding ``frame.render``; the request's
+    ``frame.net_image`` and ``frame.to_host`` follow it under its id."""
     backend = pipe.backend if mesh is None else sharded_render_backend(pipe.backend)
     bg = torch.tensor([1.0, 1.0, 1.0] if white_background else [0.0, 0.0, 0.0],
                       dtype=torch.float32, device=device)
+    requests = itertools.count()
 
     @torch.inference_mode()
     def frame(cam, scaling_modifier):
-        return render(cam.params(device), state, bg, scaling_modifier=scaling_modifier,
-                      depth_ratio=pipe.depth_ratio, backend=backend, mesh=mesh)
+        with span("frame", id=next(requests)), span("frame.render"):
+            return render(cam.params(device), state, bg, scaling_modifier=scaling_modifier,
+                          depth_ratio=pipe.depth_ratio, backend=backend, mesh=mesh)
     return frame
 
 

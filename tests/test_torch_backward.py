@@ -15,6 +15,7 @@ from gaussmart_tpu.render.raster_dense import rasterize_pixels as j_dense
 from gaussmart_tpu.render.raster_pallas import rasterize_tiled as j_tiled
 from gaussmart_tpu.render.segsum_pallas import ID_LANE, segment_sum_sorted as j_segsum
 from gaussmart_tpu_torch.cameras import Camera as TCamera
+from gaussmart_tpu_torch.logging_utils import counter
 from gaussmart_tpu_torch.render import raster_common as trc
 from gaussmart_tpu_torch.render import raster_tiled as rt
 from gaussmart_tpu_torch.render import segsum
@@ -39,10 +40,10 @@ def _autograd_rows_check(blob, ids, ranges, width, height, seed=1):
     (fb[:rt.CT] * ct).sum().backward()
     ref = blob.grad.clone()
     ref[-1] = 0.0
-    before = rt.bwd_launches
+    before = counter("raster_bwd")
     rows = rt.composite_tiles_bwd(blob.detach(), ids, ranges, fb.detach(), ints, ct,
                                   width, height)
-    assert rt.bwd_launches == before          # CPU tensors never launch K2
+    assert counter("raster_bwd") == before          # CPU tensors never launch K2
     assert rows.shape == (ids.shape[0], rt.F)
     got = rt.grad_reduce(rows, ids, blob.shape[0])
     # the same per-pixel chain rule in another association order: float32
@@ -223,9 +224,9 @@ def test_plain_segsum_matches_jax(case):
     lanes[ids >= n_seg] = 0.0
     ref = np.asarray(j_segsum(jnp.asarray(lanes), jnp.asarray(ids), n_seg,
                               interpret=True))[:n_seg, :20]
-    before = segsum.launches
+    before = counter("segsum")
     out = segsum.segment_sum_sorted(torch.tensor(rows), torch.tensor(ids), n_seg)
-    assert segsum.launches == before and out.shape == (n_seg, 20)
+    assert counter("segsum") == before and out.shape == (n_seg, 20)
     tol = 1e-4 if case == "giant" else 1e-5
     np.testing.assert_allclose(out.numpy(), ref, rtol=tol, atol=tol)
 

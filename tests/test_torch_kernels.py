@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from gaussmart_tpu_torch.cameras import Camera
+from gaussmart_tpu_torch.logging_utils import counter
 from gaussmart_tpu_torch.ops.sh import rgb2sh
 from gaussmart_tpu_torch.render import raster_tiled as rt
 from gaussmart_tpu_torch.render import segsum
@@ -157,10 +158,10 @@ def test_band_cull_keeps_every_contributing_warp(scene, shifted):
 def test_composite_tiles_on_cpu_is_the_plain_version():
     prep, width, height = _prep("ragged")
     blob, ids, ranges = _binned(prep, width, height)
-    before = rt.launches
+    before = counter("raster_fwd")
     conics = rt.build_conics(prep)
     fb, ints = rt.composite_tiles(blob, conics, ids, ranges, width, height)
-    assert rt.launches == before
+    assert counter("raster_fwd") == before
     fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height)
     assert torch.equal(fb, fb_p) and torch.equal(ints, ints_p)
     tx, ty = rt.tile_grid(width, height)
@@ -182,9 +183,9 @@ def test_kernel_matches_plain_on_card(scene):
     prep, width, height = _prep(scene, device="cuda")
     blob, ids, ranges = _binned(prep, width, height)
     conics = rt.build_conics(prep)
-    before = rt.launches
+    before = counter("raster_fwd")
     fb, ints = rt.composite_tiles(blob, conics, ids, ranges, width, height)
-    assert rt.launches == before + 1
+    assert counter("raster_fwd") == before + 1
     fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height)
     torch.cuda.synchronize()
     assert torch.equal(fb, fb_p) and torch.equal(ints, ints_p)
@@ -205,7 +206,7 @@ def test_backward_and_segsum_on_cpu_are_the_plain_versions():
     blob, ids, ranges = _binned(prep, width, height)
     fb, ints = rt.composite_tiles_plain(blob, ids, ranges, width, height)
     ct = _random_cotangent(fb)
-    before = (rt.bwd_launches, segsum.launches)
+    before = (counter("raster_bwd"), counter("segsum"))
     rows = rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height)
     assert torch.equal(rows, rt.composite_tiles_bwd_plain(blob, ids, ranges, fb, ints,
                                                           ct, width, height))
@@ -217,7 +218,7 @@ def test_backward_and_segsum_on_cpu_are_the_plain_versions():
     out = segsum.segment_sum_gathered(rows, b.inv_slots, b.slot_starts, blob.shape[0], *walk)
     assert torch.equal(out, segsum.segment_sum_gathered_plain(
         rows, b.inv_slots, b.slot_starts, blob.shape[0], *walk))
-    assert (rt.bwd_launches, segsum.launches) == before
+    assert (counter("raster_bwd"), counter("segsum")) == before
     with pytest.raises(ValueError, match="CPU or CUDA"):
         rt.composite_tiles_bwd(blob.to("meta"), ids, ranges, fb, ints, ct, width, height)
     with pytest.raises(ValueError, match="CPU or CUDA"):
@@ -347,9 +348,9 @@ def test_backward_kernel_matches_plain_on_card(scene, need):
     blob, ids, ranges = _binned(prep, width, height)
     fb, ints = rt.composite_tiles(blob, rt.build_conics(prep), ids, ranges, width, height)
     ct = _random_cotangent(fb)
-    before = rt.bwd_launches
+    before = counter("raster_bwd")
     rows = rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height, *need)
-    assert rt.bwd_launches == before + 1
+    assert counter("raster_bwd") == before + 1
     ref = rt.composite_tiles_bwd_plain(blob, ids, ranges, fb, ints, ct, width, height,
                                        *need)
     torch.cuda.synchronize()
@@ -372,9 +373,9 @@ def test_segsum_kernel_matches_plain_on_card(n_seg, max_count):
                        device="cuda")
     rows = torch.tensor(rng.standard_normal((ids.shape[0], 20)).astype(np.float32),
                         device="cuda")
-    before = segsum.launches
+    before = counter("segsum")
     out = segsum.segment_sum_sorted(rows, ids, n_seg)
-    assert segsum.launches == before + 1
+    assert counter("segsum") == before + 1
     ref = segsum.segment_sum_sorted_plain(rows.cpu(), ids.cpu(), n_seg)
     assert out.shape == (n_seg, 20) and _column_err(out.cpu(), ref) <= 1e-5
     with pytest.raises(ValueError, match="seg_ids"):
@@ -396,10 +397,10 @@ def test_segsum_gathered_kernel_matches_plain_on_card(walk, seed, max_len):
     rows, order, starts, slot_tile, tile_limit = (x.cuda() for x in case)
     walk_args = (slot_tile, tile_limit) if walk else (None, None)
     n = starts.shape[0] - 1
-    before = segsum.launches
+    before = counter("segsum")
     out = segsum.segment_sum_gathered(rows, order, starts, n + 3, *walk_args)
     again = segsum.segment_sum_gathered(rows, order, starts, n + 3, *walk_args)
-    assert segsum.launches == before + 2
+    assert counter("segsum") == before + 2
     ref = segsum.segment_sum_gathered_plain(*case[:3], n + 3,
                                             *(case[3:] if walk else (None, None)))
     assert out.shape == (n + 3, 20) and _column_err(out.cpu(), ref) <= 1e-5
@@ -429,9 +430,9 @@ def test_compact_and_segsum_agree_on_card(scene, seeded, monkeypatch):
     out = {}
     for mode in ("compact", "segsum", "scatter"):
         monkeypatch.setenv("GMT_GRAD_REDUCE", mode)
-        before = segsum.launches
+        before = counter("segsum")
         out[mode] = rt.grad_reduce(rows, b.entry_ids, n_rows, b, case["ints"])
-        assert segsum.launches == before + (mode != "scatter")
+        assert counter("segsum") == before + (mode != "scatter")
     monkeypatch.setenv("GMT_GRAD_REDUCE", "compact")
     again = rt.grad_reduce(rows, b.entry_ids, n_rows, b, case["ints"])
     assert torch.equal(out["compact"], out["segsum"]) and torch.equal(out["compact"], again)
@@ -468,7 +469,7 @@ def test_seeded_compositor_on_cpu_is_the_plain_version():
     prep, width, height = _prep("ragged")
     blob, ids, ranges = _binned(prep, width, height)
     init = _seed_maps(width, height, "cpu")
-    before = (rt.launches, rt.bwd_launches, rt.seeded_launches, rt.seeded_bwd_launches)
+    before = (counter("raster_fwd"), counter("raster_bwd"), counter("raster_fwd_seeded"), counter("raster_bwd_seeded"))
     fb, ints = rt.composite_tiles(blob, rt.build_conics(prep), ids, ranges, width, height,
                                   init=init)
     fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height, init=init)
@@ -480,8 +481,8 @@ def test_seeded_compositor_on_cpu_is_the_plain_version():
                                                 height, init=init)
     assert torch.equal(rows, rows_p) and torch.equal(gi, gi_p)
     assert gi.shape == init.shape
-    assert (rt.launches, rt.bwd_launches, rt.seeded_launches,
-            rt.seeded_bwd_launches) == before
+    assert (counter("raster_fwd"), counter("raster_bwd"), counter("raster_fwd_seeded"),
+            counter("raster_bwd_seeded")) == before
 
 
 @pytest.mark.cuda
@@ -495,9 +496,9 @@ def test_seeded_kernel_matches_plain_on_card(scene):
     blob, ids, ranges = _binned(prep, width, height)
     conics = rt.build_conics(prep)
     init = _seed_maps(width, height, "cuda")
-    before = (rt.launches, rt.seeded_launches)
+    before = (counter("raster_fwd"), counter("raster_fwd_seeded"))
     fb, ints = rt.composite_tiles(blob, conics, ids, ranges, width, height, init=init)
-    assert (rt.launches, rt.seeded_launches) == (before[0], before[1] + 1)
+    assert (counter("raster_fwd"), counter("raster_fwd_seeded")) == (before[0], before[1] + 1)
     fb_p, ints_p = rt.composite_tiles_plain(blob, ids, ranges, width, height, init=init)
     torch.cuda.synchronize()
     assert torch.equal(fb, fb_p) and torch.equal(ints, ints_p)
@@ -521,10 +522,10 @@ def test_seeded_backward_kernel_matches_plain_on_card(scene, need):
     fb, ints = rt.composite_tiles(blob, rt.build_conics(prep), ids, ranges, width, height,
                                   init=init)
     ct = _seeded_cotangent(fb)
-    before = (rt.bwd_launches, rt.seeded_bwd_launches)
+    before = (counter("raster_bwd"), counter("raster_bwd_seeded"))
     rows, gi = rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height,
                                       *need, init=init)
-    assert (rt.bwd_launches, rt.seeded_bwd_launches) == (before[0], before[1] + 1)
+    assert (counter("raster_bwd"), counter("raster_bwd_seeded")) == (before[0], before[1] + 1)
     ref, gi_p = rt.composite_tiles_bwd_plain(blob, ids, ranges, fb, ints, ct, width,
                                              height, *need, init=init)
     torch.cuda.synchronize()
@@ -554,14 +555,14 @@ def test_seeded_render_on_card_never_takes_the_plain_versions(monkeypatch):
                             requires_grad=True)
             for k, lo, hi in (("T", 0.3, 1.0), ("M1", 0.0, 0.3), ("M2", 0.0, 0.2))}
     means2d = torch.zeros(n, 2, device="cuda", requires_grad=True)
-    before = (rt.seeded_launches, rt.seeded_bwd_launches)
+    before = (counter("raster_fwd_seeded"), counter("raster_bwd_seeded"))
     out = rt.rasterize_tiled(prep, means2d, torch.zeros(3, device="cuda"), width, height,
                              init_state=init, return_raw=True)
     loss = (out["image"].sum() + out["allmap"].sum() + out["raw"]["T"].sum()
             + out["raw"]["M1"].sum() + out["raw"]["M2"].sum())
     loss.backward()
     torch.cuda.synchronize()
-    assert (rt.seeded_launches, rt.seeded_bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert (counter("raster_fwd_seeded"), counter("raster_bwd_seeded")) == (before[0] + 1, before[1] + 1)
     assert all(torch.isfinite(v.grad).all() for v in init.values())
     assert torch.isfinite(means2d.grad).all() and means2d.grad.abs().sum() > 0
 

@@ -26,6 +26,7 @@ from gaussmart_tpu.render import raster_common as jrc
 from gaussmart_tpu.render.api import render as j_render
 from gaussmart_tpu.render.raster_dense import rasterize_pixels as j_dense
 from gaussmart_tpu_torch.cameras import Camera as TCamera
+from gaussmart_tpu_torch.logging_utils import counter
 from gaussmart_tpu_torch.models import gaussians as tg
 from gaussmart_tpu_torch.parallel import sharding as tsh
 from gaussmart_tpu_torch.render import raster_common as trc
@@ -127,7 +128,7 @@ def test_gaussian_sharded_render_matches_jax(meshes, kind):
         assert frozen.numel() > 0 and frozen.max().item() > 3 * T_EPS
     tol_img, tol_map = TOLS[kind]
     maps = [0, 1, 2, 3, 4, 6] if kind == "overlap" else list(range(7))
-    before = (rt.seeded_launches, rt.seeded_bwd_launches)
+    before = (counter("raster_fwd_seeded"), counter("raster_bwd_seeded"))
     for backend in ("dense", "pallas"):
         out = tsh.render_gaussian_sharded(tmesh, tp, torch.zeros(n, 2), torch.tensor(bg),
                                           W, H, chunk=8, backend=backend)
@@ -137,7 +138,7 @@ def test_gaussian_sharded_render_matches_jax(meshes, kind):
         np.testing.assert_allclose(am[maps], am_ref[maps], atol=tol_map, err_msg=backend)
         if kind == "overlap":
             assert np.mean(np.abs(am[5] - am_ref[5]) > 1e-3) < 0.02, backend
-    assert (rt.seeded_launches, rt.seeded_bwd_launches) == before   # CPU: plain
+    assert (counter("raster_fwd_seeded"), counter("raster_bwd_seeded")) == before   # CPU: plain
 
 
 def test_gaussian_sharded_gradients_match_jax(meshes):

@@ -13,6 +13,7 @@ from gaussmart_tpu.render import raster_common as jrc
 from gaussmart_tpu.render.raster_dense import rasterize_pixels as j_dense
 from gaussmart_tpu.render.raster_pallas import rasterize_tiled as j_tiled
 from gaussmart_tpu_torch.cameras import Camera as TCamera
+from gaussmart_tpu_torch.logging_utils import counter
 from gaussmart_tpu_torch.render import raster_common as trc
 from gaussmart_tpu_torch.render import raster_tiled as rt
 from gaussmart_tpu_torch.render.raster_dense import rasterize_pixels as t_dense
@@ -68,11 +69,11 @@ def test_plain_k3_matches_jax_seeded_tiled_and_dense():
     n = tprep.depth.shape[0]
     seed = _seed(W, H)
     bg = np.array([0.1, 0.2, 0.3], np.float32)
-    before = (rt.launches, rt.seeded_launches)
+    before = (counter("raster_fwd"), counter("raster_fwd_seeded"))
     out = rt.rasterize_tiled(tprep, torch.zeros(n, 2), torch.tensor(bg), W, H,
                              init_state={k: torch.tensor(v) for k, v in seed.items()},
                              return_raw=True)
-    assert (rt.launches, rt.seeded_launches) == before     # CPU: no launch
+    assert (counter("raster_fwd"), counter("raster_fwd_seeded")) == before     # CPU: no launch
     assert set(out["raw"]) == set(RAW) | {"min_test"}
     assert not out["raw"]["min_test"].requires_grad
     jseed = {k: jnp.asarray(v) for k, v in seed.items()}
@@ -160,10 +161,10 @@ def test_plain_k4_matches_autograd_of_plain_k3(scene, need):
     (fb[:rt.CT_SEEDED] * ct).sum().backward()
     ref_blob, ref_gi = blob.grad.clone(), init.grad.clone()
     ref_blob[-1] = 0.0
-    before = rt.seeded_bwd_launches
+    before = counter("raster_bwd_seeded")
     rows, gi = rt.composite_tiles_bwd(blob.detach(), ids, ranges, fb.detach(), ints, ct,
                                       W, H, need_dist, need_med, init=init.detach())
-    assert rt.seeded_bwd_launches == before
+    assert counter("raster_bwd_seeded") == before
     got = rt.grad_reduce(rows, ids, blob.shape[0])
     assert _column_scale_err(got, ref_blob) <= 2e-5
     # the seed gradient per pixel, against each channel's scale (pixels past
