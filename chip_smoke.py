@@ -151,6 +151,15 @@ Phases, each printing its own lines; any failure exits non-zero:
      mapping) equal to it to the byte, the encoder timed there; the
      integer-only fixtures of tests/torch_data/video encoded to their
      committed sha256 (the bits of the build whose files cv2 decoded).
+ 13. the no-grad render's fused preprocess (scripts/bench_preprocess.py runs
+     it alone): preprocess_fwd (K6) against its plain twin, the unfused
+     chain, on the phase-4 model's 8 views and on a GARDEN_SPLATS-splat
+     state at GARDEN_WIDTH x GARDEN_HEIGHT (SH 3, 5% of its rows inactive):
+     the blob, the conic rows and radius, depth, rx, ry and valid bit-equal
+     (the largest gap in ulps of each column group printed), and render()
+     against render_arrays every output bit-equal; one K6 and one K1 launch
+     a render(); K6's device time beside its byte bound, the plain chain's
+     device time and launches, and both frames'.
 N_SLOTS slots on one card measure the cost of the two-pass fold, not
 scaling across cards.
 Each path's kernel launch counts are set to 0 just before it runs and read
@@ -188,7 +197,7 @@ TRAIN_ITERS, RESUME_ITERS, SEGSUM_ITERS, DP_ITERS = 30, 2, 5, 3
 N_SLOTS = 4               # device slots of the multi-device paths, all on the card
 EVAL_RENDERS = 5          # train.report_eval: 5 train views, no test split
 FRAMES = 20               # timed calls per measurement (median)
-PLAIN_FRAMES = 3          # the plain versions take seconds per call
+PLAIN_FRAMES = 1          # the plain versions take seconds per call
 # kernel -> (its source csrc/<source>.cu, the TPU kernel it replaces); the
 # seeded kernels K3 and K4 are the with_init=True variants of the Pallas
 # kernels that K1 and K2 replace, and share their sources
@@ -196,12 +205,22 @@ KERNELS = {"raster_fwd": ("raster_fwd", "gaussmart_tpu/render/raster_pallas.py:3
            "raster_bwd": ("raster_bwd", "gaussmart_tpu/render/raster_pallas.py:499"),
            "segsum": ("segsum", "gaussmart_tpu/render/segsum_pallas.py:59"),
            "raster_fwd_seeded": ("raster_fwd", "gaussmart_tpu/render/raster_pallas.py:327"),
-           "raster_bwd_seeded": ("raster_bwd", "gaussmart_tpu/render/raster_pallas.py:499")}
-SOURCES = ("raster_fwd", "raster_bwd", "segsum")
+           "raster_bwd_seeded": ("raster_bwd", "gaussmart_tpu/render/raster_pallas.py:499"),
+           # XLA fused this chain on the TPU: no Pallas kernel
+           "preprocess_fwd": ("preprocess", "none (raster_common.preprocess, fused by XLA)")}
+SOURCES = ("raster_fwd", "raster_bwd", "segsum", "preprocess")
 # the template parameters of the kernels' variants, for the ptxas report
 TEMPLATE_PARAMS = {"raster_fwd_kernel": ("seeded",),
                    "raster_bwd_kernel": ("need_dist", "need_med", "seeded"),
                    "segsum_kernel": ("order", "walk")}
+# the fused preprocess's garden-scale state (the m360-garden cell's splat
+# count, image size and SH degree). Phase 13 holds K6 bit-equal to its
+# plain twin at 100k and 3M splats: the plain chain's matrix products are
+# cuBLAS's, and at these row counts cuBLAS on the H100 takes a fused
+# multiply-add chain in k order, which K6 follows (below about 100 rows
+# cuBLAS takes another kernel: tests/test_torch_preprocess_fused.py holds
+# T within 2 ulps there)
+GARDEN_SPLATS, GARDEN_WIDTH, GARDEN_HEIGHT = 3_000_000, 1296, 840
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -1036,7 +1055,8 @@ def serve(model, state, device):
           f"render vs in-memory render max|diff| (8-bit levels) {max(png_err)}; "
           "mean rend_alpha of the loaded splats " + " ".join(f"{a:.3f}" for a in alpha))
     n_views = len(ex.viewpoint_stack)
-    if not (only(counts, raster_fwd=n_views) and n_views == len(renders) and finite
+    if not (only(counts, raster_fwd=n_views, preprocess_fwd=n_views)
+            and n_views == len(renders) and finite
             and all(r.shape == renders[0].shape for r in renders)
             and max(png_err) <= PNG_TOL and float(np.mean(alpha)) > 0.5):
         fail("[serve] check failed")
@@ -1096,6 +1116,209 @@ def row_sharded_render(device):
           f"{err:.3g} (limit {ROW_TOL}); shape {tuple(out['render'].shape)}")
     if not (only(counts) and err <= ROW_TOL and out["render"].shape == (3, 30, 64)):
         fail("[serve] row-sharded check failed")
+
+
+# --- the fused preprocess (K6) ------------------------------------------------
+
+def garden_scale_state(seed, device):
+    """GARDEN_SPLATS splats made on the card from `seed`: bench.py's centre
+    box, log-scales round the box's mean spacing with a log-normal spread,
+    random quaternions, the bimodal opacity, SH coefficients of scale 0.1,
+    and 5% of the rows inactive (a capacity's free slots)."""
+    import torch
+    from gaussmart_tpu_torch.models.gaussians import (GaussianAux, GaussianParams,
+                                                      GaussianState)
+    from gaussmart_tpu_torch.ops.sh import rgb2sh
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = GARDEN_SPLATS
+
+    def u(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=device)
+    xyz = torch.stack([2 * u(n) - 1, 2 * u(n) - 1, 2 + 3 * u(n)], dim=1)
+    op = torch.where(u(n) < 0.6, 0.7 + 0.29 * u(n), 0.05 + 0.25 * u(n))
+    k = (SH_DEGREE + 1) ** 2
+    params = GaussianParams(
+        xyz=xyz, features_dc=rgb2sh(u(n, 1, 3)), features_rest=0.1 * normal(n, k - 1, 3),
+        scaling=float(np.log((12.0 / n) ** (1 / 3))) + 0.4 * normal(n, 2),
+        rotation=normal(n, 4), opacity=torch.log(op / (1 - op))[:, None])
+    zeros = torch.zeros(n, device=device)
+    aux = GaussianAux(active=u(n) >= 0.05, segments=torch.zeros(n, dtype=torch.int32,
+                                                                  device=device),
+                      max_radii2d=zeros, grad_accum=zeros.clone(), denom=zeros.clone())
+    return GaussianState(params=params, aux=aux, max_sh_degree=SH_DEGREE,
+                         active_sh_degree=SH_DEGREE, spatial_lr_scale=1.0)
+
+
+def ulps(a, b):
+    """Per element distance of two float32 tensors in units in the last
+    place (0 where the bits are equal; NaN against a number counts huge)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i >= 0, i, -(i & 0x7FFFFFFF))
+    return (ordered(a) - ordered(b)).abs()
+
+
+def hold_fused(label, got, ref):
+    """K6's Fused against its plain twin's: every column bit-equal, the
+    zero rows zero. Prints each column group's share of bit-equal rows and
+    largest gap in ulps. Returns the largest |difference| over the blob and
+    conic rows."""
+    import torch
+    torch.cuda.synchronize()
+    n = got.prep.depth.shape[0]
+    cols = {"shift": got.blob[:, 11:13], "colour": got.blob[:, 14:17]}
+    refs = {"shift": ref.blob[:, 11:13], "colour": ref.blob[:, 14:17]}
+    elementwise = all(torch.equal(cols[k], refs[k]) for k in cols)
+    groups = {
+        "T": (got.blob[:, :9], ref.blob[:, :9]),
+        "centre": (got.blob[:, 9:11], ref.blob[:, 9:11]),
+        "opacity": (got.blob[:, 13:14], ref.blob[:, 13:14]),
+        "normal": (got.blob[:, 17:20], ref.blob[:, 17:20]),
+        "conics": (got.conics, ref.conics),
+        "radius": (got.prep.radius[:, None], ref.prep.radius[:, None]),
+        "depth": (got.prep.depth[:, None], ref.prep.depth[:, None]),
+        "rx, ry": (torch.stack([got.prep.rx, got.prep.ry], 1),
+                   torch.stack([ref.prep.rx, ref.prep.ry], 1)),
+        "valid": (got.prep.valid[:, None].float(), ref.prep.valid[:, None].float()),
+    }
+    stats = {}
+    for name, (a, b) in groups.items():
+        d = ulps(a, b)
+        stats[name] = ((d == 0).all(dim=1).float().mean().item(), int(d.max()))
+    err = max((got.blob - ref.blob).abs().max().item(),
+              (got.conics - ref.conics).abs().max().item())
+    same = torch.equal(got.blob, ref.blob) and torch.equal(got.conics, ref.conics) and all(
+        torch.equal(getattr(got.prep, f), getattr(ref.prep, f))
+        for f in ("radius", "depth", "rx", "ry", "valid"))
+    print(f"[fused] {label}, {n} splats ({int(ref.prep.valid.sum())} valid): shift and "
+          f"colour bit-equal {elementwise}; rows bit-equal (share, max ulps): "
+          + "; ".join(f"{k} {share:.6f}, {u}" for k, (share, u) in stats.items())
+          + f"; max|err| of the blob and conic rows {err:.3g}; all bit-equal {same}")
+    if not (same and not got.blob[-1].any() and not got.conics[-1].any()):
+        fail(f"[fused] {label}: preprocess_fwd is not bit-equal to its plain twin")
+    return err
+
+
+def unfused_render(cam, state, bg):
+    """render_arrays on the state's fields: the unfused chain that render()
+    without a gradient replaces with K6."""
+    from gaussmart_tpu_torch.render.api import render_arrays
+    return render_arrays(
+        cam, xyz=state.params.xyz, scaling=state.get_scaling,
+        rotation=state.params.rotation, opacity=state.get_opacity[:, 0],
+        features=state.get_features, active=state.aux.active,
+        sh_degree=state.active_sh_degree, bg_color=bg)
+
+
+def hold_fused_frames(label, state, cams, device):
+    """render() (K6) against the unfused chain on each camera: every output
+    bit-equal; one K6 and one K1 launch a render()."""
+    import torch
+    from gaussmart_tpu_torch.render.api import render
+    bg = torch.zeros(3, device=device)
+    differ = set()
+    with torch.inference_mode():
+        for cam in cams:
+            zero_counts()
+            out = render(cam, state, bg)
+            counts = read_counts()
+            if not only(counts, raster_fwd=1, preprocess_fwd=1):
+                fail(f"[fused] {label}: render() launched {counts}")
+            ref = unfused_render(cam, state, bg)
+            differ |= {k for k in ref if not torch.equal(out[k], ref[k])}
+    print(f"[fused] {label}: {len(cams)} frames, render() (K6) against render_arrays: "
+          f"outputs not bit-equal {sorted(differ)}; one preprocess_fwd and one raster_fwd "
+          "a render()")
+    if differ:
+        fail(f"[fused] {label}: render() and render_arrays differ in {sorted(differ)}")
+
+
+def fused_bytes(state):
+    """Bytes K6 must move: each input read once, each output written once."""
+    n = state.capacity
+    n_rest = state.params.features_rest.shape[1]
+    reads = n * (4 * (3 + 2 + 4 + 1 + 3 + 3 * n_rest) + 1)
+    writes = (n + 1) * 4 * (20 + 8) + n * (4 * 4 + 1)
+    return reads + writes
+
+
+def time_fused(label, state, cam, card):
+    """K6's device time beside its byte bound, the plain chain's device time
+    and launches, and the render() frame against the unfused one.
+    Returns (K6 ms, plain ms, bound ms)."""
+    import torch
+    from gaussmart_tpu_torch.render.api import render
+    from gaussmart_tpu_torch.render.preprocess_fused import (preprocess_fused,
+                                                             preprocess_fused_plain)
+    bg = torch.zeros(3, device=state.device)
+
+    def unfused():
+        return unfused_render(cam, state, bg)
+    with torch.inference_mode():
+        k6_ms, _ = device_kernel_ms(lambda: preprocess_fused(state, cam), FRAMES)
+        plain_ms, plain_top = device_kernel_ms(lambda: preprocess_fused_plain(state, cam),
+                                               5)
+        frame_ms = time_ms(lambda: render(cam, state, bg), FRAMES)
+        unfused_ms = time_ms(unfused, FRAMES)
+        frame_dev, frame_top = device_kernel_ms(lambda: render(cam, state, bg), 5)
+        unfused_dev, unfused_top = device_kernel_ms(unfused, 5)
+    nbytes = fused_bytes(state)
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+
+    def launches(top):
+        return sum(c for _, _, c in top)
+    if k6_ms is None:
+        print(f"[time] {label}: device times not measured (the profiler recorded no "
+              "device events)")
+        return None, None, bound_ms
+    print(f"[time] {card}: {label}, {state.capacity} splats: preprocess_fwd (K6) "
+          f"{k6_ms:.4f} ms device, bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB at "
+          f"3.35 TB/s: {100 * bound_ms / k6_ms:.1f}% of it); the plain chain (activations, "
+          f"preprocess, build_blob, build_conics) {plain_ms:.4f} ms device in "
+          f"{launches(plain_top):g} launches; render() {frame_ms:.4f} ms a frame "
+          f"(device {frame_dev:.4f} ms in {launches(frame_top):g} launches), the unfused "
+          f"frame {unfused_ms:.4f} ms (device {unfused_dev:.4f} ms in "
+          f"{launches(unfused_top):g} launches)")
+    return k6_ms, plain_ms, bound_ms
+
+
+def fused_preprocess_path(state_s, cams, seed, device, card):
+    """Phase 13: K6 against its plain twin on the phase-4 model's views and
+    on a garden-scale state; served frames; timings. Returns (max abs err,
+    (K6 ms, plain ms, library ms), (bound ms, "bytes")) at garden scale."""
+    import torch
+    from gaussmart_tpu_torch.render.preprocess_fused import (preprocess_fused,
+                                                             preprocess_fused_plain)
+    err = 0.0
+    views = [c.params(device) for c in cams]
+    with torch.inference_mode():
+        for i, cam in enumerate(views):
+            for smod in (1.0, 0.7):
+                err = max(err, hold_fused(f"phase-4 model, view {i}, scaling_modifier "
+                                          f"{smod}", preprocess_fused(state_s, cam, smod),
+                                          preprocess_fused_plain(state_s, cam, smod)))
+    hold_fused_frames(f"phase-4 model {WIDTH}x{HEIGHT}", state_s, views, device)
+    time_fused(f"phase-4 model {WIDTH}x{HEIGHT}", state_s, views[0], card)
+
+    garden = garden_scale_state(seed, device)
+    gcams = [c.params(device) for c in bench_cameras(3, GARDEN_WIDTH, GARDEN_HEIGHT)]
+    with torch.inference_mode():
+        for i, cam in enumerate(gcams):
+            err = max(err, hold_fused(f"garden-scale state, view {i}",
+                                      preprocess_fused(garden, cam),
+                                      preprocess_fused_plain(garden, cam)))
+    hold_fused_frames(f"garden-scale state {GARDEN_WIDTH}x{GARDEN_HEIGHT}", garden,
+                      gcams, device)
+    k6_ms, plain_ms, bound_ms = time_fused(
+        f"garden-scale state {GARDEN_WIDTH}x{GARDEN_HEIGHT}", garden, gcams[0], card)
+    del garden
+    torch.cuda.empty_cache()
+    return err, (k6_ms, plain_ms, None), (bound_ms, "bytes")
 
 
 def counted_train(argv, after_step):
@@ -1177,7 +1400,7 @@ def train_path(root, seed, n, width, height, device):
           f"{int(state.n_active)} of capacity {state.capacity}; Adam steps "
           f"{int(adam.step)}; eval {ev}; missing outputs {missing}")
     if not (only(counts, raster_fwd=TRAIN_ITERS + EVAL_RENDERS, raster_bwd=TRAIN_ITERS,
-                 segsum=TRAIN_ITERS)
+                 segsum=TRAIN_ITERS, preprocess_fwd=EVAL_RENDERS)
             and int(adam.step) == TRAIN_ITERS - densified
             and np.all(np.isfinite(losses)) and len(losses) == TRAIN_ITERS
             and last < first and not missing
@@ -1531,7 +1754,7 @@ def viewer_path(model, state, cam, device):
     if not (client.error is None and client.items == items
             and len(client.frames) == len(requests)
             and all(len(f[0]) == cam.width * cam.height * 3 for f in client.frames)
-            and only(counts, raster_fwd=len(requests))
+            and only(counts, raster_fwd=len(requests), preprocess_fwd=len(requests))
             and max(errs.values()) <= PNG_TOL):
         fail("[viewer] check failed")
     return ms
@@ -1561,7 +1784,7 @@ def gui_training(root, device):
             and all(len(f[0]) == WIDTH * HEIGHT * 3 and len(set(f[0])) > 1
                     for f in client.frames)
             and only(counts, raster_fwd=GUI_ITERS + GUI_FRAMES, raster_bwd=GUI_ITERS,
-                     segsum=GUI_ITERS)
+                     segsum=GUI_ITERS, preprocess_fwd=GUI_FRAMES)
             and len(losses) == GUI_ITERS and np.all(np.isfinite(losses))):
         fail("[viewer] train --gui check failed")
 
@@ -1734,8 +1957,8 @@ def mesh_cli(model, device, fwd, args=()):
     print(f"[mesh] render_cli --depth_ratio {MESH_DEPTH_RATIO} "
           f"{' '.join(args) or '(bounded, --mesh_res 1024)'}: "
           f"{secs:.2f} s; launches {counts} (expected raster_fwd {fwd})")
-    if not only(counts, raster_fwd=fwd):
-        fail("[mesh] K1 launch count check failed")
+    if not only(counts, raster_fwd=fwd, preprocess_fwd=fwd):
+        fail("[mesh] K1 and K6 launch count check failed")
     return ex, secs
 
 
@@ -2415,7 +2638,7 @@ def jpeg_path(root, seed, device, card):
           f"{JPEG_WIDTH // JPEG_FACTOR}x{JPEG_HEIGHT // JPEG_FACTOR} in {load_s:.3f} s, "
           f"each equal to read_jpeg + _resize_u8 of its file: {not mismatched}")
     if not (only(counts, raster_fwd=JPEG_ITERS + EVAL_RENDERS, raster_bwd=JPEG_ITERS,
-                 segsum=JPEG_ITERS)
+                 segsum=JPEG_ITERS, preprocess_fwd=EVAL_RENDERS)
             and len(losses) == JPEG_ITERS and np.all(np.isfinite(losses))
             and len(loaded) == JPEG_VIEWS and not mismatched):
         fail("[jpeg] training check failed")
@@ -2707,7 +2930,8 @@ def synthetic_path(root, device, card, iters=SYNTH_ITERS, beside=""):
         print(f"[synthetic] in-loop eval at {it_} ({dt:.2f} s): "
               + "; ".join(f"{k} L1 {v['l1']:.5f} PSNR {v['psnr']:.3f} SSIM {v['ssim']:.4f}"
                           for k, v in res.items()))
-    if not (only(counts, raster_fwd=k1, raster_bwd=iters, segsum=iters)
+    if not (only(counts, raster_fwd=k1, raster_bwd=iters, segsum=iters,
+                 preprocess_fwd=k1 - iters)
             and len(losses) == iters and np.isfinite(losses).all()
             and [i for i, *_ in ev["densify"]] == want["densify"]
             and ev["reset"] == want["reset"] and ev["sh"] == want["sh"]
@@ -2738,7 +2962,7 @@ def synthetic_path(root, device, card, iters=SYNTH_ITERS, beside=""):
     # that box needs more than TSDF_CAP voxels the voxel grows to hold the
     # cap (its ceil rounding may pass it by a layer)
     capped = voxel > asked
-    ok = (only(counts, raster_fwd=k1) and n_vox < 1.01 * TSDF_CAP
+    ok = (only(counts, raster_fwd=k1, preprocess_fwd=k1) and n_vox < 1.01 * TSDF_CAP
           and (not capped or n_vox > 0.99 * TSDF_CAP)
           and np.isfinite(psnr) and np.isfinite(chamfer["overall"]))
     held = []
@@ -3763,7 +3987,8 @@ def render_path_videos(model, device, card):
           f"launches {counts}; K1 through its wrapper on the path (CUDA events) median "
           f"{np.median(k1_ms):.4f} ms, min {min(k1_ms):.4f}, max {max(k1_ms):.4f}, sum "
           f"{sum(k1_ms):.2f} ms; finite {finite}; pixels with depth > 0 {covered:.3f}")
-    ok = (only(counts, raster_fwd=TRAJ_FRAMES) and len(k1_ms) == TRAJ_FRAMES and finite
+    ok = (only(counts, raster_fwd=TRAJ_FRAMES, preprocess_fwd=TRAJ_FRAMES)
+          and len(k1_ms) == TRAJ_FRAMES and finite
           and (cam.width, cam.height) == (WIDTH, HEIGHT))
     traj = os.path.join(model, "traj", f"ours_{ITERATION}")
     t0 = time.perf_counter()
@@ -3864,6 +4089,12 @@ def main(argv=None):
         row_sharded_render(dev)
         t_phase = phase_wall("4 (serving)", t_phase)
 
+        # 13. the no-grad render's fused preprocess (K6)
+        k6_err, k6_times, k6_bound = fused_preprocess_path(state_s, cams, args.seed, dev,
+                                                           card)
+        errs["preprocess_fwd"] = k6_err
+        t_phase = phase_wall("13 (fused preprocess)", t_phase)
+
         # 5. the training paths
         counts, losses = train_path(root, args.seed, N_SPLATS, WIDTH, HEIGHT, dev)
         mp_counts = train_slots_path(root, dev, losses)
@@ -3949,7 +4180,9 @@ def main(argv=None):
     launches = {"raster_fwd": counts["raster_fwd"], "raster_bwd": counts["raster_bwd"],
                 "segsum": counts["segsum"],
                 "raster_fwd_seeded": mp_counts["raster_fwd_seeded"],
-                "raster_bwd_seeded": mp_counts["raster_bwd_seeded"]}
+                "raster_bwd_seeded": mp_counts["raster_bwd_seeded"],
+                "preprocess_fwd": counts["preprocess_fwd"]}
+    times["preprocess_fwd"], bounds["preprocess_fwd"] = k6_times, k6_bound
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",
         "source": f"gaussmart_tpu_torch/csrc/{src}.cu", "replaces": replaces,

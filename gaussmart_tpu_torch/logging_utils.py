@@ -86,8 +86,9 @@ def profile_trace(logdir: Optional[str]):
 
 # --- spans and counters ----------------------------------------------------
 
-# the launch counters of the hand-written kernels: K1, K2, K3, K4, K5
-LAUNCHES = ("raster_fwd", "raster_bwd", "raster_fwd_seeded", "raster_bwd_seeded", "segsum")
+# the launch counters of the hand-written kernels: K1, K2, K3, K4, K5, K6
+LAUNCHES = ("raster_fwd", "raster_bwd", "raster_fwd_seeded", "raster_bwd_seeded", "segsum",
+            "preprocess_fwd")
 MAX_SPANS = 1 << 17     # the buffer keeps the newest spans
 
 

@@ -9,6 +9,12 @@ compositor. With `mesh` (parallel/sharding.py's device slots):
 with the dense compositor and folds them, "gaussian_sharded_pallas" does
 so with the seeded tiled core (K3/K4), and "row_sharded" composites
 blocks of image rows on the slots.
+
+render() without a gradient (a single state on a CUDA device, backend
+"auto" or "pallas", no override colour, no means2d: the viewer,
+render_cli, the mesh export and the evaluation renders) builds the
+compositor's rows from the raw parameters in one pass, K6
+(render/preprocess_fused.py); every other call goes through render_arrays.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from gaussmart_tpu_torch.logging_utils import span
 from gaussmart_tpu_torch.models.gaussians import GaussianState
 from gaussmart_tpu_torch.ops.depth_normal import depth_to_normal
 from gaussmart_tpu_torch.render import raster_common
+from gaussmart_tpu_torch.render.preprocess_fused import preprocess_fused
 from gaussmart_tpu_torch.render.raster_dense import rasterize_pixels
 from gaussmart_tpu_torch.render.raster_tiled import rasterize_tiled
 
@@ -44,6 +51,8 @@ def render(
     """`state` is one GaussianState, or with a Gaussian-sharded backend
     the per-slot chunks of one (the sharded training state)."""
     chunks = state if isinstance(state, list) else None
+    if fused_route(state, backend, override_color, means2d):
+        return _render_fused(cam, state, bg_color, scaling_modifier, depth_ratio)
 
     def field(get):
         return [get(s) for s in chunks] if chunks else get(state)
@@ -150,6 +159,37 @@ def render_arrays(
                               need_dist_grad=need_dist_grad,
                               need_med_grad=(depth_ratio != 0.0))
 
+    radii = [p.radius for p in prep] if chunked else prep.radius
+    return _package(cam, out, means2d, radii, depth_ratio)
+
+
+def fused_route(state, backend: str, override_color: Optional[torch.Tensor],
+                means2d: Optional[torch.Tensor]) -> bool:
+    """Whether render() takes K6: no gradient wanted, one GaussianState on
+    a CUDA device, the tiled backend, no override colour and no means2d."""
+    return (not isinstance(state, list) and state.device.type == "cuda"
+            and backend in ("auto", "pallas") and override_color is None
+            and means2d is None and not torch.is_grad_enabled())
+
+
+def _render_fused(cam: CameraParams, state: GaussianState, bg_color: torch.Tensor,
+                  scaling_modifier: float, depth_ratio: float) -> Dict[str, torch.Tensor]:
+    """render() without a gradient: K6's blob and conic rows, then the
+    tiled compositor, as render_arrays would composite them."""
+    cam = cam.to(state.device)
+    with span("render.preprocess"):
+        fused = preprocess_fused(state, cam, scaling_modifier)
+    means2d = torch.zeros((state.capacity, 2), dtype=torch.float32, device=state.device)
+    out = rasterize_tiled(fused.prep, means2d, bg_color, cam.width, cam.height,
+                          need_med_grad=(depth_ratio != 0.0), blob=fused.blob,
+                          conics=fused.conics)
+    return _package(cam, out, means2d, fused.prep.radius, depth_ratio)
+
+
+def _package(cam: CameraParams, out: Dict[str, torch.Tensor], means2d, radii,
+             depth_ratio: float) -> Dict[str, torch.Tensor]:
+    """The output dict from the compositor's image and allmap; `radii` (and
+    means2d) are lists of per-slot chunks for a chunked render."""
     image, allmap = out["image"], out["allmap"]
     with span("render.decode"):
 
@@ -171,11 +211,10 @@ def render_arrays(
         surf_normal = depth_to_normal(cam, surf_depth).permute(2, 0, 1)
         surf_normal = surf_normal * render_alpha.detach()
 
-    radii = [p.radius for p in prep] if chunked else prep.radius
     return {
         "render": image,
         "viewspace_points": means2d,
-        "visibility_filter": [r > 0 for r in radii] if chunked else radii > 0,
+        "visibility_filter": [r > 0 for r in radii] if isinstance(radii, list) else radii > 0,
         "radii": radii,
         "rend_alpha": render_alpha,
         "rend_normal": render_normal,

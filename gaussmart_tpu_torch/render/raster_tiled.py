@@ -200,13 +200,16 @@ class Binned(NamedTuple):
     slot_tile: torch.Tensor
 
 
-def binning(prep: Preprocessed, tiles_x: int, tiles_y: int) -> Binned:
+def binning(prep: Preprocessed, tiles_x: int, tiles_y: int,
+            conics: Optional[torch.Tensor] = None) -> Binned:
     """The (splat, tile) pairs of the frame sorted by (tile, depth), and
-    the backward's reduction plan (Binned)."""
+    the backward's reduction plan (Binned). `conics` is build_conics(prep)
+    where the caller has it already."""
     dev = prep.depth.device
     N = prep.depth.shape[0]
     n_tiles = tiles_x * tiles_y
-    conics = build_conics(prep)
+    if conics is None:
+        conics = build_conics(prep)
     cx, cy = prep.center2d[:, 0], prep.center2d[:, 1]
     rx, ry = prep.rx, prep.ry
     valid = prep.valid & (rx > 0) & (ry > 0)
@@ -820,7 +823,9 @@ def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,
                     need_med_grad: bool = True,
                     init_state: Optional[Dict[str, torch.Tensor]] = None,
                     return_raw: bool = False,
-                    binned: Optional[Binned] = None
+                    binned: Optional[Binned] = None,
+                    blob: Optional[torch.Tensor] = None,
+                    conics: Optional[torch.Tensor] = None
                     ) -> Dict[str, torch.Tensor]:
     """Tiled render: image [3,H,W], allmap [7,H,W] (expected depth, alpha,
     normal x3, median depth, distortion) and n_dropped, which is always 0
@@ -838,13 +843,17 @@ def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,
     min_test), as in the JAX package. Without init_state the raw M1/M2
     carry no gradient; pass an identity seed to differentiate them.
     `binned` = binning(prep, ...) lets a caller that composites the same
-    prep twice bin it once."""
+    prep twice bin it once; `blob` and `conics` (build_blob's and
+    build_conics' rows of prep, means2d zero) are taken as they are, as the
+    no-grad render's fused preprocess (render/preprocess_fused.py) gives
+    them."""
     tiles_x, tiles_y = tile_grid(width, height)
-    with span("render.preprocess"):
-        blob = build_blob(prep, means2d, width, height)
+    if blob is None:
+        with span("render.preprocess"):
+            blob = build_blob(prep, means2d, width, height)
     if binned is None:
         with torch.no_grad(), span("render.binning"):
-            binned = binning(prep, tiles_x, tiles_y)
+            binned = binning(prep, tiles_x, tiles_y, conics)
     with span("render.composite"):
         if init_state is None:
             fb, _ = RasterCore.apply(blob, binned, width, height, need_dist_grad,
