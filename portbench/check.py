@@ -13,7 +13,6 @@ import torch
 from portbench import common
 from portbench.reference import raster
 from portbench.reference import train as ref_train
-from portbench.reference.dino import Tower
 from portbench.reference.precision import MATMUL
 
 GROUPS = ref_train.GROUPS
@@ -75,9 +74,7 @@ def reference_steps(p0: Dict[str, torch.Tensor], active, cams, gts, iterations: 
     mm = MATMUL[precision]
     tower = None
     if tower_weights is not None:
-        tower = Tower(tower_weights, heads=dino["heads"], patch=dino["patch"],
-                      size=dino["image_size"], theta=dino["rope_theta"], eps=dino["ln_eps"],
-                      mm=mm)
+        tower = common.tower(dino).Tower(tower_weights, dino, mm)
     params = dict(p0)
     state = ref_train.init_adam(p0) if state is None else state
     out = {"losses": [], "diag": []}

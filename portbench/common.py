@@ -22,6 +22,8 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # top-level module names a run may not hold once its window has closed
 FORBIDDEN = ("jax", "jaxlib", "flax", "gaussmart_tpu")
+# the tower of a configuration's `dino` that names no `kind`
+DEFAULT_TOWER = "dinov3-vit"
 
 
 class Run(NamedTuple):
@@ -83,6 +85,17 @@ def module(kind: str, name: str):
     sys.modules[key] = mod
     spec_.loader.exec_module(mod)
     return mod
+
+
+def tower(dino: dict):
+    """The tower kind a configuration's `dino` names: towers/<kind>.py."""
+    return module("towers", dino.get("kind", DEFAULT_TOWER))
+
+
+def role(workload: str) -> str:
+    """What a cell's driver does, "train" or "view" (the driver's ROLE):
+    how its runs are traced and checked, whatever the driver's name."""
+    return module("drivers", cell(spec(), workload)[3]["driver"]).ROLE
 
 
 def metrics_of(spec_: dict, workload: str, trace: int):

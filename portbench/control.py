@@ -45,7 +45,7 @@ def main(argv=None) -> int:
         out = driver.run(run, cfg, traffic, torch.device("cuda"))
         read = {"program": out.numbers}
         if i < args.control_seeds:
-            read.update({f"{p}/{f}": out.control(p, f) for p, f in VARIANTS[traffic["driver"]]})
+            read.update({f"{p}/{f}": out.control(p, f) for p, f in VARIANTS[driver.ROLE]})
         line = {k: dict(v, correct=check.verdict(v, lim)[0]) for k, v in read.items()}
         print(json.dumps({"seed": seed, **line}), flush=True)
     return 0

@@ -27,6 +27,7 @@ from typing import Dict
 
 import torch
 
+from portbench import common
 from portbench.common import PEAK_BYTES_PER_S, PEAK_F32_FLOPS
 from portbench.reference import raster
 
@@ -71,18 +72,10 @@ def k2_bound_s(work, pixels: int) -> float:
 
 
 def dino_term_flops(dino: dict, height: int, width: int) -> float:
-    """Float32 operations of the DINO term on a height x width render: the
-    render's and the target's forwards and the backward to the render (each
-    product's input gradient costs its forward again, attention's two
-    products twice), counted from the widths; norms, GELU and softmax left
-    out."""
-    S, p, L, D = dino["image_size"], dino["patch"], dino["depth"], dino["dim"]
-    N = 1 + dino["registers"] + (S // p) ** 2
-    resize = 2 * 3 * height * width * S + 2 * 3 * S * height * S
-    dense = 2 * (S // p) ** 2 * 3 * p * p * D + L * (2 * N * D * 3 * D + 2 * N * D * D
-                                                      + 2 * 2 * N * D * 4 * D)
-    attention = L * 2 * 2 * N * N * D
-    return 2 * (resize + dense + attention) + resize + dense + 2 * attention
+    """Float32 operations of the DINO term on a height x width render (the
+    render's and the target's forwards and the backward to the render), as
+    the tower kind that the configuration's `dino` names counts them."""
+    return common.tower(dino).term_flops(dino, height, width)
 
 
 def step_flops(work, dino, height: int, width: int, n_active: int,

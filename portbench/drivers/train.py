@@ -4,8 +4,10 @@ cycled in a seeded per-epoch shuffle as `train.training` draws them, each
 step's state feeding the next.
 
 Set-up makes the state, the targets and the DINO tower's weights from the
-seed, builds the step as `train.training` does (the term from
-`train._build_dino_fn` on an npz written under $TMPDIR), and drives the
+seed (the tower on the device, written to an npz under $TMPDIR one array
+at a time and freed before the peak is reset), builds the step as
+`train.training` does (the term from `train._build_dino_fn` on that npz),
+and drives the
 step's first three calls: they compile and warm it, and the reference
 follows them from the seed's state. The window counts every step that
 completes in it. The three steps right after it go through the same step
@@ -13,7 +15,11 @@ object in its steady state, and the reference follows them from the
 state the window left (parameters and Adam's moments): so a path that the
 program only takes once it is warm is compared too. Each check reads the
 steps' loss terms, the first step's gradient (from Adam's first moment
-before and after it) and the change of the parameters over the three."""
+before and after it) and the change of the parameters over the three. The
+reference draws the tower again from the seed once the program's state is
+freed. A traced run profiles PROFILED_STEPS more steps, then as many with
+the program's own spans on, then HOST_STEPS with the spans on and no
+profiler, for the spans' host times (spans.traced)."""
 from __future__ import annotations
 
 import gc
@@ -25,11 +31,13 @@ import time
 
 import torch
 
-from portbench import check, common, counts, scene as scenes, trace as tracing
+from portbench import check, common, counts, scene as scenes, spans, trace as tracing
 
+ROLE = "train"
 CHECK_STEPS = 3
 WARM_STEPS = 2
 PROFILED_STEPS = 4
+HOST_STEPS = 40
 
 
 class Views:
@@ -59,9 +67,9 @@ def run(args, cfg, traffic, device) -> common.Run:
     views = scenes.train_views(cfg, sc.cams)
     gts = scenes.targets(len(sc.cams), sc.width, sc.height, args.seed, device)
     dino = cfg["dino"] if traffic["dino"] else None
-    tower_w = None
+    npz = os.path.join(tempfile.gettempdir(), f"portbench_dino_{os.getpid()}.npz")
     if dino:
-        tower_w = {k: v.cpu() for k, v in scenes.dino_weights(dino, args.seed, device).items()}
+        scenes.write_dino_npz(scenes.dino_weights(dino, args.seed, device), dino, npz)
     common.sync(device)
     common.reset_peak(device)
     marks.append(("inputs", common.process_age_s()))
@@ -73,16 +81,14 @@ def run(args, cfg, traffic, device) -> common.Run:
     dino_fn = None
     if dino:
         from gaussmart_tpu_torch.semantics.dino import WEIGHT_ENV
-        path = os.path.join(tempfile.gettempdir(), f"portbench_dino_{os.getpid()}.npz")
-        scenes.write_dino_npz(tower_w, dino, path)
-        os.environ[WEIGHT_ENV] = path
+        os.environ[WEIGHT_ENV] = npz
         from gaussmart_tpu_torch import train as train_cli
         try:
             dino_fn = train_cli._build_dino_fn(traffic["lambda_dino"], traffic["dino_start_iter"],
                                                traffic["dino_mode"], device)
         finally:
             del os.environ[WEIGHT_ENV]
-            os.remove(path)
+            os.remove(npz)
         if dino_fn is None:
             raise RuntimeError("the system found no DINO weights")
 
@@ -190,6 +196,7 @@ def run(args, cfg, traffic, device) -> common.Run:
 
         rec["trace"] = tracing.profile(profiled_step, PROFILED_STEPS)
         rec["profiled"] = kept
+        rec["spans"] = spans.traced(ROLE, profiled_step, PROFILED_STEPS, HOST_STEPS)
     rec["phases"] = {"profile_s": time.perf_counter() - t_end}
     t_end = time.perf_counter()
     rec["active"] = int(aux.active.sum())
@@ -214,7 +221,7 @@ def run(args, cfg, traffic, device) -> common.Run:
     t_end = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    weights = None if tower_w is None else {k: v.to(device) for k, v in tower_w.items()}
+    weights = scenes.dino_weights(dino, args.seed, device) if dino else None
 
     def reference(start, views, precision="float32", fault=None):
         state = None if start["m"] is None else dict(m=start["m"], v=start["v"], t=start["t"])

@@ -10,7 +10,10 @@ model from the seed and serves WARM_FRAMES requests over poses spread
 evenly around the path, in the cell's mode cycle. The window times every
 request from its send to its bytes. Afterwards a seeded sample of the
 served frames, some of each mode, is rendered again by the reference and
-compared byte for byte."""
+compared byte for byte. A traced run profiles PROFILED_FRAMES more frames,
+then as many with the program's own spans on, then HOST_FRAMES (the whole
+path) with the spans on and no profiler, for the spans' host times
+(spans.traced)."""
 from __future__ import annotations
 
 import gc
@@ -20,9 +23,11 @@ import time
 import numpy as np
 import torch
 
-from portbench import check, common, counts, scene as scenes, trace as tracing
+from portbench import check, common, counts, scene as scenes, spans, trace as tracing
 
+ROLE = "view"
 PROFILED_FRAMES = 6
+HOST_FRAMES = 240
 WARM_FRAMES = 60
 SAMPLE_PER_MODE = 2
 
@@ -144,6 +149,7 @@ def run(args, cfg, traffic, device) -> common.Run:
                 shown.append(k)
 
         rec["trace"] = tracing.profile(profiled_frame, PROFILED_FRAMES)
+        rec["spans"] = spans.traced(ROLE, profiled_frame, PROFILED_FRAMES, HOST_FRAMES)
     rec["pixels"] = sc.width * sc.height
     rec["phases"] = {"profile_s": time.perf_counter() - t_end}
     t_end = time.perf_counter()

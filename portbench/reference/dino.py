@@ -25,8 +25,8 @@ MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
 
 
-def weight_shapes(depth: int, dim: int, patch: int, registers: int):
-    """{name: shape} of the tower's weights."""
+def weight_shapes(depth: int, dim: int, mlp: int, patch: int, registers: int):
+    """{name: shape} of the tower's weights, with an MLP of width `mlp`."""
     shapes = {"patch_w": (3 * patch * patch, dim), "patch_b": (dim,), "cls_token": (dim,),
               "register_tokens": (registers, dim), "norm_g": (dim,), "norm_b": (dim,)}
     for i in range(depth):
@@ -37,8 +37,8 @@ def weight_shapes(depth: int, dim: int, patch: int, registers: int):
             f"{p}.attn.qkv_w": (dim, 3 * dim), f"{p}.attn.qkv_b": (3 * dim,),
             f"{p}.attn.proj_w": (dim, dim), f"{p}.attn.proj_b": (dim,),
             f"{p}.ls1": (dim,), f"{p}.ls2": (dim,),
-            f"{p}.fc1_w": (dim, 4 * dim), f"{p}.fc1_b": (4 * dim,),
-            f"{p}.fc2_w": (4 * dim, dim), f"{p}.fc2_b": (dim,)})
+            f"{p}.fc1_w": (dim, mlp), f"{p}.fc1_b": (mlp,),
+            f"{p}.fc2_w": (mlp, dim), f"{p}.fc2_b": (dim,)})
     return shapes
 
 

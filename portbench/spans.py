@@ -12,8 +12,14 @@ steps or frames, one with the program's tracing off and one with it on, in
 turns. It prints the idle-by-span table, the device time by span, the
 numbers of `METRICS` and the time per call of both kinds of window as
 `[spans]` lines on standard error, and writes them to
-chiprun_out/spans_<cell>_<seed>.json. Nothing of BENCHMARK.json reads them
-yet (PERF.md section 7)."""
+chiprun_out/spans_<cell>_<seed>.json.
+
+Every traced run of a cell keeps one such window with tracing on
+(`traced`, called by the drivers) as `rec["spans"]`, which the per-layer
+metrics of METRICS, and any later metrics/<name>.py, read. Its readings
+of the host's clock come from a longer window of their own, with the
+program's tracing on and no profiler, whose annotations slow the host:
+each the median over that window's calls."""
 from __future__ import annotations
 
 import bisect
@@ -33,7 +39,8 @@ LAUNCH_CATS = {"cuda_runtime", "cuda_driver"}
 PREFIX = "gm/"
 ROOTS = ("step", "frame")
 OUTSIDE = "(no gm/ span)"
-# per step (train) or frame (view): (kind of reading, span)
+# per step (train) or frame (view): (kind of reading, span); the kinds of
+# HOST are read on the host's clock
 METRICS = {
     "train": {"preprocess_ms.train": ("device", "render.preprocess"),
               "binning_ms.train": ("device", "render.binning"),
@@ -46,6 +53,7 @@ METRICS = {
              "sync_wait_ms.view": ("sync", None),
              "to_host_ms.view": ("self", "frame.to_host")},
 }
+HOST = ("sync", "self")
 
 
 class Intervals:
@@ -152,18 +160,24 @@ def program_spans(spans):
     return dict(total), {k: v - sync_in.get(k, 0.0) for k, v in total.items()}
 
 
-def metrics(kind: str, summary: dict, calls: int) -> dict:
-    """The numbers of METRICS[kind] from a window's summary (attribute's,
+def host_ms(how: str, span, program_s: dict, program_self_s: dict) -> float:
+    """A reading of the kinds of HOST from program_spans' tables: the host
+    ms in every `*.sync` span, or in `span` less its `.sync` child."""
+    if how == "sync":
+        return 1e3 * sum(v for k, v in program_s.items() if k.endswith(".sync"))
+    return 1e3 * program_self_s.get(span, 0.0)
+
+
+def metrics(role: str, summary: dict, calls: int) -> dict:
+    """The numbers of METRICS[role] from a window's summary (attribute's,
     with `program_s`, `program_self_s` and `counters` added), per call."""
     out = {}
-    for name, (how, span) in METRICS[kind].items():
+    for name, (how, span) in METRICS[role].items():
         if how == "device":
             out[name] = 1e3 * under(summary["device_s"], span) / calls
-        elif how == "sync":
-            out[name] = 1e3 * sum(v for k, v in summary["program_s"].items()
-                                  if k.endswith(".sync")) / calls
-        elif how == "self":
-            out[name] = 1e3 * summary["program_self_s"].get(span, 0.0) / calls
+        elif how in HOST:
+            out[name] = host_ms(how, span, summary["program_s"],
+                                summary["program_self_s"]) / calls
         else:
             c = summary["counters"]
             rect = c.get("render.rect_pairs", 0)
@@ -214,6 +228,60 @@ def window(fn, n: int, on: bool, warmup: int = 1, first: int = 0):
     return dt, summary
 
 
+def record(role: str, summary: dict, calls: int) -> dict:
+    """A window with tracing on as a run keeps it, per call: each span's
+    device ms (of the ops it launched, its children's apart), idle ms and
+    host ms, each counter, and the numbers of METRICS[role]."""
+    def per_call(table, scale=1e3):
+        return {k: scale * v / calls for k, v in table.items()}
+    return {"calls": calls, "device_ms": per_call(summary["device_s"]),
+            "idle_ms": per_call(summary["idle_s"]), "host_ms": per_call(summary["program_s"]),
+            "counters": per_call(summary["counters"], 1), "metrics": metrics(role, summary, calls)}
+
+
+def host_window(role: str, fn, n: int, warmup: int = 1, first: int = 0) -> dict:
+    """fn(first + i) for i < warmup + n with the program's tracing on and no
+    profiler; the last n calls told apart by their spans' root id: per span
+    the median over the calls of its host ms (`host_median_ms`, 0 in a
+    call without it), and each reading of the kinds of HOST in METRICS[role]
+    as its median over the calls."""
+    from gaussmart_tpu_torch import logging_utils
+
+    was = logging_utils.tracing(True)
+    try:
+        for i in range(warmup + n):
+            if i == warmup:
+                logging_utils.collect()
+            fn(first + i)
+        spans, _ = logging_utils.collect()
+    finally:
+        logging_utils.tracing(was)
+    by_call = collections.defaultdict(list)
+    for s in spans:
+        by_call[s.id].append(s)
+    calls = [program_spans(v) for v in by_call.values()]
+    names = sorted({k for total, _ in calls for k in total})
+    return {"host_calls": len(calls),
+            "host_median_ms": {k: 1e3 * statistics.median(t.get(k, 0.0) for t, _ in calls)
+                               for k in names},
+            "metrics": {name: statistics.median(host_ms(how, span, *c) for c in calls)
+                        for name, (how, span) in METRICS[role].items() if how in HOST}}
+
+
+def traced(role: str, fn, n: int, host_calls: int, warmup: int = 1) -> dict:
+    """After a cell's profiled window fn(0 .. warmup + n - 1), a window of
+    as many calls under the profiler with the program's tracing on
+    (record()'s numbers of its last n), then host_window's of host_calls
+    calls, whose medians replace the host readings. The calls are numbered
+    below 0, so what a driver keeps of its profiled calls (those from 1 on)
+    stays as it is."""
+    _, summary = window(fn, n, True, warmup, first=-(warmup + n))
+    out = record(role, summary, n)
+    host = host_window(role, fn, host_calls, warmup, first=-(warmup + host_calls))
+    out["metrics"].update(host.pop("metrics"))
+    return {**out, **host}
+
+
 def _add(total: dict, summary: dict):
     for key in ("device_s", "idle_s", "program_s", "program_self_s", "counters"):
         into = total.setdefault(key, {})
@@ -223,18 +291,14 @@ def _add(total: dict, summary: dict):
         total[key] = total.get(key, 0) + summary[key]
 
 
-def report(workload: str, kind: str, total: dict, calls: int, times: dict) -> dict:
+def report(workload: str, role: str, total: dict, calls: int, times: dict) -> dict:
     """The [spans] lines of the windows with tracing on, summed in `total`
     over `calls` calls; `times` {on: [seconds per call of each window]}."""
     idle = sum(total["idle_s"].values())
     left = sum(v for k, v in total["idle_s"].items() if k in ROOTS or k == OUTSIDE)
-    out = {"workload": workload, "calls": calls, "idle_share": 1 - total["busy_s"] / total["window_s"],
-           "idle_left_share": left / idle if idle else 0.0,
-           "idle_ms": {k: 1e3 * v / calls for k, v in total["idle_s"].items()},
-           "device_ms": {k: 1e3 * v / calls for k, v in total["device_s"].items()},
-           "host_ms": {k: 1e3 * v / calls for k, v in total["program_s"].items()},
-           "kernels": total["kernels"] / calls, "counters": total["counters"],
-           "metrics": metrics(kind, total, calls),
+    out = {"workload": workload, "idle_share": 1 - total["busy_s"] / total["window_s"],
+           "idle_left_share": left / idle if idle else 0.0, **record(role, total, calls),
+           "kernels": total["kernels"] / calls,
            "ms_per_call": {("on" if on else "off"): [1e3 * t for t in ts] for on, ts in times.items()}}
     p = lambda *a: print("[spans]", *a, file=sys.stderr)  # noqa: E731
     p(f"{workload}: {calls} calls traced, device idle {100 * out['idle_share']:.1f}%, "
@@ -248,7 +312,7 @@ def report(workload: str, kind: str, total: dict, calls: int, times: dict) -> di
           f"{out['device_ms'].get(k, 0.0):.3f} | {out['host_ms'].get(k, 0.0):.3f}")
     for k, v in out["metrics"].items():
         p(f"metric {k} {v!r}")
-    p(f"counters {json.dumps(out['counters'], sort_keys=True)}")
+    p(f"counters a call {json.dumps(out['counters'], sort_keys=True)}")
     if times.get(True) and times.get(False):
         on, off = statistics.median(times[True]), statistics.median(times[False])
         p(f"cost: {1e3 * off:.3f} ms a call with tracing off, {1e3 * on:.3f} on "
@@ -266,7 +330,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=1, help="pairs of windows, off and on")
     own, rest = ap.parse_known_args(argv)
     args = common.parse_args(rest + ["--trace", "1"])
-    kind = common.cell(common.spec(), args.workload)[3]["driver"]
+    role = common.role(args.workload)
     cell_profile = trace.profile
     done = {}
 
@@ -281,7 +345,7 @@ def main(argv=None) -> int:
                 times[on].append(dt)
                 if on:
                     _add(total, summary)
-        done["report"] = report(args.workload, kind, total, n * own.rounds, times)
+        done["report"] = report(args.workload, role, total, n * own.rounds, times)
         return out
 
     trace.profile = profile

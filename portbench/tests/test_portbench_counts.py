@@ -27,12 +27,12 @@ def test_kernel_bounds_take_the_larger_of_operations_and_bytes():
 
 def test_dino_term_flops_at_the_published_widths():
     # ViT-B/16 at 224 on a 776x584 render: 111.437 GFLOP, as chip_smoke.fixed_term_flops counts it
-    dino = dict(image_size=224, patch=16, depth=12, dim=768, registers=4)
+    dino = dict(image_size=224, patch=16, depth=12, dim=768, mlp=3072, registers=4)
     assert counts.dino_term_flops(dino, 584, 776) == pytest.approx(111.437e9, rel=1e-5)
 
 
 def test_step_flops_and_mfu_add_their_three_parts():
-    dino = dict(image_size=224, patch=16, depth=12, dim=768, registers=4)
+    dino = dict(image_size=224, patch=16, depth=12, dim=768, mlp=3072, registers=4)
     work = {"blends": 2 * 10**6, "visible": 5 * 10**4}
     want = (89 + 249) * 2e6 + counts.dino_term_flops(dino, 584, 776) \
         + 10**5 * (494 + 1388 + 17 * 58)

@@ -65,7 +65,7 @@ def test_rasterizer_maps_and_gradients_match_the_system(workload, view):
 def test_tower_and_term_match_the_system_encoder():
     from gaussmart_tpu_torch.losses import dino_term
     from gaussmart_tpu_torch.semantics.dino import DinoEncoder
-    dino = dict(depth=2, dim=192, heads=3, patch=16, registers=4, image_size=64,
+    dino = dict(depth=2, dim=192, heads=3, mlp=768, patch=16, registers=4, image_size=64,
                 rope_theta=100.0, ln_eps=1e-5)
     w = scenes.dino_weights(dino, 5, "cpu")
     params = {k: v.numpy() for k, v in w.items()}

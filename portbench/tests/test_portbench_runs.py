@@ -1,8 +1,9 @@
 """Whole runs at a tiny size on the CPU: each cell's driver and run.py past
 its look for a card (sound, and with the timed path broken underneath, where
 `correct` has to come out false), run.py without a card and without the
-system beside it, and no JAX module in a run's process. One test needs the
-card (marker `cuda`)."""
+system beside it, no JAX module in a run's process, a traced run's record
+of the program's spans, and cells classed by their driver's ROLE. One test
+needs the card (marker `cuda`)."""
 import json
 import os
 import shutil
@@ -16,7 +17,14 @@ from portbench import common
 from portbench.tests.helpers import run_args, tiny_cell
 
 CELLS = [w["name"] for w in common.spec()["workloads"]]
-TRAIN = [w for w in CELLS if common.cell(common.spec(), w)[3]["driver"] == "train"]
+
+
+def is_training(workload):
+    """A cell is checked as training by its driver's ROLE, not its name."""
+    return common.role(workload) == "train"
+
+
+TRAIN = [w for w in CELLS if is_training(w)]
 SERVED = [w for w in CELLS if w not in TRAIN]
 DEVICE_METRICS = {"peak_mem_gib"}
 
@@ -177,6 +185,85 @@ print(",".join(common.forbidden_modules()) or "none")
                        timeout=600, env=dict(os.environ, JAX_PLATFORMS="cpu"))
     assert p.returncode == 0, p.stderr[-3000:]
     assert p.stdout.strip().splitlines()[-1] == "none"
+
+
+def _traced_on_cpu(monkeypatch, workload, spans_window):
+    """The cell's driver at a tiny size on the CPU with --trace 1, on a
+    clock that ticks a second at each reading, so that a window takes the
+    same steps or frames every time; the profiler traces the CPU alone over
+    windows of 2 calls, and the stage times' CUDA events read 0. With
+    `spans_window` False, spans.traced runs no window of its own."""
+    import time
+    from torch.profiler import ProfilerActivity
+    from portbench import spans
+
+    class Event:
+        def __init__(self, **k):
+            pass
+
+        def record(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 0.0
+    ticks = iter(range(10**9))
+    monkeypatch.setattr(time, "perf_counter", lambda: float(next(ticks)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    profile = torch.profiler.profile
+    monkeypatch.setattr(torch.profiler, "profile",
+                        lambda activities, **k: profile(activities=[ProfilerActivity.CPU], **k))
+    if not spans_window:
+        monkeypatch.setattr(spans, "traced", lambda role, fn, n, host_calls, warmup=1: None)
+    _, _, cfg, traffic = tiny_cell(workload)
+    driver = common.module("drivers", traffic["driver"])
+    for name in ("PROFILED_STEPS", "PROFILED_FRAMES", "HOST_STEPS", "HOST_FRAMES"):
+        if hasattr(driver, name):
+            monkeypatch.setattr(driver, name, 2 if name.startswith("PROFILED") else 3)
+    return driver.run(run_args(workload, seconds=3.5, trace=1), cfg, traffic,
+                      torch.device("cpu")).rec
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_a_traced_run_keeps_the_program_spans_and_the_same_work(monkeypatch, workload):
+    from portbench import spans
+    rec = _traced_on_cpu(monkeypatch, workload, True)
+    role = common.role(workload)
+    kept = rec["spans"]
+    assert kept["calls"] >= 1 and set(kept["metrics"]) == set(spans.METRICS[role])
+    root = "step" if role == "train" else "frame"
+    assert kept["host_ms"][root] > 0 and "render.binning" in kept["host_ms"]
+    assert kept["host_calls"] == 3 and kept["host_median_ms"][root] > 0
+    if role == "train":
+        assert kept["counters"]["render.rect_pairs"] > 0
+        assert 0 < kept["metrics"]["pair_yield.train"] <= 100
+    for name in spans.METRICS[role]:
+        value = common.module("metrics", name).read(rec)
+        assert value is not None and value >= 0, name
+    without = _traced_on_cpu(monkeypatch, workload, False)
+    assert without["spans"] is None and rec["work"] and rec["work"] == without["work"]
+
+
+def test_a_training_driver_under_another_name_is_training(monkeypatch, tmp_path):
+    """A driver named `fit` that declares ROLE = "train" is classed as
+    training by these tests and by portbench/spans.py."""
+    from portbench import run, spans, trace
+    train = common.module("drivers", "train")
+    fit = dict(common.cell(common.spec(), TRAIN[0])[3], driver="fit")
+    cell, module = common.cell, common.module
+    monkeypatch.setattr(common, "cell", lambda spec, name: cell(spec, TRAIN[0])[:3] + (fit,))
+    monkeypatch.setattr(common, "module", lambda kind, name: train if (kind, name) == (
+        "drivers", "fit") else module(kind, name))
+    assert is_training("x.fit")
+    seen = []
+    monkeypatch.setattr(trace, "profile", lambda fn, n, warmup=1: None)
+    monkeypatch.setattr(spans, "window", lambda *a, **k: (0.001, {}))
+    monkeypatch.setattr(spans, "_add", lambda total, summary: None)
+    monkeypatch.setattr(spans, "report", lambda workload, role, *a: seen.append(role) or {})
+    monkeypatch.setattr(run, "main", lambda argv: trace.profile(lambda i: None, 1) and 0)
+    monkeypatch.chdir(tmp_path)
+    spans.main(["--workload", "x.fit", "--seed", "1", "--seconds", "1"])
+    assert seen == ["train"]
 
 
 @pytest.mark.cuda

@@ -90,3 +90,35 @@ def test_metrics_per_call_from_the_trace_and_the_program():
     assert set(view) == set(spans.METRICS["view"])
     summary["counters"] = {}
     assert spans.metrics("train", summary, calls=1)["pair_yield.train"] is None
+
+
+def test_host_window_reads_the_median_call(monkeypatch):
+    """host_window's host readings: per call, told apart by the root's id,
+    the ms in the `.sync` spans and in `frame.to_host` less its sync; each
+    the median over the calls after the warm-up, which is left out."""
+    import time
+
+    from gaussmart_tpu_torch import logging_utils
+    clock = [0]
+    monkeypatch.setattr(time, "perf_counter_ns", lambda: clock[0])
+
+    def wait(ms):
+        clock[0] += int(ms * 1e6)
+    # call: (binning's sync, the copy, its sync) in ms; call 0 warms up
+    calls = {0: (50.0, 50.0, 50.0), 1: (1.0, 1.0, 0.5), 2: (2.0, 4.0, 0.5), 3: (10.0, 2.0, 0.5)}
+
+    def frame(i):
+        binning_sync, copy, copy_sync = calls[i]
+        with logging_utils.span("frame", id=100 + i), logging_utils.span("render.binning"):
+            with logging_utils.span("render.binning.sync"):
+                wait(binning_sync)
+        with logging_utils.span("frame.to_host"):
+            wait(copy)
+            with logging_utils.span("frame.to_host.sync"):
+                wait(copy_sync)
+
+    got = spans.host_window("view", frame, 3)
+    assert not logging_utils.is_tracing() and got["host_calls"] == 3
+    assert got["metrics"] == pytest.approx({"sync_wait_ms.view": 2.5, "to_host_ms.view": 2.0})
+    assert got["host_median_ms"]["frame.to_host"] == pytest.approx(2.5)
+    assert got["host_median_ms"]["render.binning.sync"] == pytest.approx(2.0)
