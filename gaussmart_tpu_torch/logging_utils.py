@@ -181,6 +181,19 @@ def span(name: str, id: Optional[int] = None):
     return _Open(name, id)
 
 
+def child(suffix: str):
+    """A span named ``<innermost open span>.<suffix>`` (the open root's
+    name on a thread with none open; `suffix` alone outside every span),
+    so that code called under several stages is read under each of them
+    by name (the DINO tower's blocks: ``losses.dino.render.attn``); a
+    shared no-op while tracing is off."""
+    if not _on:
+        return _OFF
+    stack = _stack()
+    outer = stack[-1].name if stack else (_root.name if _root else None)
+    return _Open(f"{outer}.{suffix}" if outer else suffix, None)
+
+
 def tracing(on: bool) -> bool:
     """Switch tracing on or off; returns whether it was on."""
     global _on

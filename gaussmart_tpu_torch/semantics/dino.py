@@ -14,30 +14,45 @@ Two architectures share the forward skeleton, selected by the weights:
 * **plain ViT** (HF `ViTModel`): a learned absolute position embedding
   added to [CLS, patches], no LayerScale, LN eps 1e-12.
 
-Both pool as the final-LN CLS token. The input is resized to the fixed
-`image_size` with the JAX package's antialiased bilinear resize, written
-as two products with per-axis weight matrices (the weights of
-`jax.image.resize`, built in numpy), so the backward is two matmuls and
-deterministic on the card. Every product is a float32 matmul, attention
-included (matmul, softmax, matmul); the patch embedding is a reshape and
-a matmul, not a convolution.
+Both pool as the final-LN CLS token. The MLP is read from the weights
+too: `blocks.{i}.gate_w`/`up_w`/`down_w` give DINOv3's gated SiLU block,
+down(silu(gate(h)) * up(h)) (ViT-7B/16), else `fc1`/`fc2` the exact-GELU
+one. A projection whose `<name>_b` is absent is a plain product (the 7B
+has no q/k/v bias). Inside the tower each block's two branches are the
+spans `attn` and `mlp`, named under the span that holds the call
+(`losses.dino.render.attn`, ...; logging_utils.child). The input is
+resized to the fixed `image_size` with the JAX package's antialiased
+bilinear resize, written as two products with per-axis weight matrices
+(the weights of `jax.image.resize`, built in numpy), so the backward is
+two matmuls and deterministic on the card. Every product is a float32
+matmul, attention included (matmul, softmax, matmul); the patch embedding
+is a reshape and a matmul, not a convolution.
 
-Weights: `DinoEncoder(params)` takes the JAX package's numpy dict as it
-is. `create()` reads an npz named by $GAUSSMART_DINO_WEIGHTS or found at
-DEFAULT_PATHS (the second is the JAX package's, so one converted file
-serves both), or builds `random()` when the variable is "random"; it
-raises FileNotFoundError when there is none. `convert_hf_dino` converts a
+Weights: `DinoEncoder(params, device=...)` takes the JAX package's layout
+as any mapping of names to arrays (a dict, an open npz, or tensors) and
+copies each array in turn to its buffer on `device`. `create(device)`
+reads an npz named by $GAUSSMART_DINO_WEIGHTS or found at DEFAULT_PATHS
+(the second is the JAX package's, so one converted file serves both) one
+member at a time, each into one reused host buffer (page-locked for a
+card) and on to its buffer, so the host holds one array of the tower at
+once (the 7B is 25 GiB); it builds `random()` when the variable is "random" and
+raises FileNotFoundError when there is none. `to_device` copies an
+encoder to another device without the host. `convert_hf_dino` converts a
 locally cached HF checkpoint (it imports transformers inside the call).
 """
 from __future__ import annotations
 
 import math
 import os
-from typing import Dict
+import struct
+import zipfile
+from typing import Any, Dict, Iterator, Mapping
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from gaussmart_tpu_torch.logging_utils import child
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -88,7 +103,10 @@ def _rope_cos_sin(gh: int, gw: int, head_dim: int, theta: float):
 
 
 def _dense(x, p, name):
-    return torch.addmm(p[f"{name}_b"], x, p[f"{name}_w"])
+    b = p.get(f"{name}_b")
+    if b is None:
+        return x @ p[f"{name}_w"]
+    return torch.addmm(b, x, p[f"{name}_w"])
 
 
 def _rotate_half(x):
@@ -117,30 +135,89 @@ def _attention(x, p, prefix, n_heads, rope=None):
 def _block(x, p, i, n_heads, eps, rope=None):
     pre = f"blocks.{i}"
     D = x.shape[-1]
-    h = F.layer_norm(x, (D,), p[f"{pre}.norm1_g"], p[f"{pre}.norm1_b"], eps)
-    h = _attention(h, p, f"{pre}.attn", n_heads, rope=rope)
-    if f"{pre}.ls1" in p:
-        h = h * p[f"{pre}.ls1"]
-    x = x + h
-    h = F.layer_norm(x, (D,), p[f"{pre}.norm2_g"], p[f"{pre}.norm2_b"], eps)
-    h = F.gelu(_dense(h, p, f"{pre}.fc1"), approximate="none")   # exact (erf) GELU
-    h = _dense(h, p, f"{pre}.fc2")
-    if f"{pre}.ls2" in p:
-        h = h * p[f"{pre}.ls2"]
-    return x + h
+    with child("attn"):
+        h = F.layer_norm(x, (D,), p[f"{pre}.norm1_g"], p[f"{pre}.norm1_b"], eps)
+        h = _attention(h, p, f"{pre}.attn", n_heads, rope=rope)
+        if f"{pre}.ls1" in p:
+            h = h * p[f"{pre}.ls1"]
+        x = x + h
+    with child("mlp"):
+        h = F.layer_norm(x, (D,), p[f"{pre}.norm2_g"], p[f"{pre}.norm2_b"], eps)
+        if f"{pre}.gate_w" in p:                                  # gated SiLU
+            h = F.silu(_dense(h, p, f"{pre}.gate")) * _dense(h, p, f"{pre}.up")
+            h = _dense(h, p, f"{pre}.down")
+        else:
+            h = F.gelu(_dense(h, p, f"{pre}.fc1"), approximate="none")   # exact (erf) GELU
+            h = _dense(h, p, f"{pre}.fc2")
+        if f"{pre}.ls2" in p:
+            h = h * p[f"{pre}.ls2"]
+        x = x + h
+    return x
 
 
 def _buffer(key: str) -> str:
     return key.replace(".", "__")
 
 
+def _copy_to(a, device) -> torch.Tensor:
+    """A float32 copy of one array (numpy, or a tensor anywhere) on `device`."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a, np.float32))
+    return t.to(device=device, dtype=torch.float32, copy=True)
+
+
+class _NpzMembers(Mapping):
+    """An npz that np.load opened from its path: its arrays by name, each
+    read when it is asked for. A member stored uncompressed (np.savez's
+    layout) is read with one read straight into one host buffer, which the
+    next member read reuses: an array is valid until then, and its CRC is
+    not checked. Any other member comes through numpy. `pinned`: the
+    buffer is page-locked, for copies to a card at the link's speed."""
+
+    def __init__(self, z, pinned: bool = False):
+        self._z, self._pinned = z, pinned
+        self._buf = np.empty(0, np.uint8)
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._z.files)
+
+    def __len__(self) -> int:
+        return len(self._z.files)
+
+    def __contains__(self, key) -> bool:
+        return key in self._z.files
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        try:
+            info = self._z.zip.getinfo(f"{key}.npy")
+        except KeyError:
+            return self._z[key]
+        if info.compress_type != zipfile.ZIP_STORED:
+            return self._z[key]
+        f = self._z.fid                                  # np.load's own file object
+        f.seek(info.header_offset + 26)                  # the local header's name, extra lengths
+        name_len, extra_len = struct.unpack("<HH", f.read(4))
+        f.seek(info.header_offset + 30 + name_len + extra_len)
+        if np.lib.format.read_magic(f) != (1, 0):
+            return self._z[key]
+        shape, fortran, dtype = np.lib.format.read_array_header_1_0(f)
+        if dtype.hasobject:
+            return self._z[key]
+        n = math.prod(shape) * dtype.itemsize
+        if self._buf.size < n:
+            self._buf = (torch.empty(n, dtype=torch.uint8, pin_memory=True).numpy()
+                         if self._pinned else np.empty(n, np.uint8))
+        if f.readinto(memoryview(self._buf)[:n]) != n:
+            raise ValueError(f"{key}: the npz member ends early")
+        return self._buf[:n].view(dtype).reshape(shape, order="F" if fortran else "C")
+
+
 class DinoEncoder(torch.nn.Module):
     """DINO(v3) encoder: image [3,H,W] in [0,1] -> pooled embedding [D].
-    The weights are buffers (frozen: nothing differentiates them); move
-    the encoder with `.to(device)`."""
+    The weights are buffers (frozen: nothing differentiates them), each
+    copied from `params` to `device` in turn (the CPU by default)."""
 
-    def __init__(self, params: Dict[str, np.ndarray], patch: int = 16,
-                 n_heads: int = 12, image_size: int = 224):
+    def __init__(self, params: Mapping[str, Any], patch: int = 16,
+                 n_heads: int = 12, image_size: int = 224, device=None):
         super().__init__()
         self.patch = patch
         self.n_heads = n_heads
@@ -153,8 +230,7 @@ class DinoEncoder(torch.nn.Module):
                 1e-5 if self.rope_theta is not None else 1e-12)
         self._keys = [k for k in params if not k.startswith("meta_")]
         for k in self._keys:
-            self.register_buffer(_buffer(k), torch.from_numpy(
-                np.array(params[k], np.float32)))
+            self.register_buffer(_buffer(k), _copy_to(params[k], device))
         # per-device tables: (kind, sizes, device) -> tensor
         self._tables: Dict[tuple, torch.Tensor] = {}
 
@@ -244,25 +320,38 @@ class DinoEncoder(torch.nn.Module):
         return self.tokens(image)[0]                              # CLS pooled
 
     # -- constructors -------------------------------------------------------
+    def to_device(self, device) -> "DinoEncoder":
+        """A copy of the encoder on `device`, each buffer copied there from
+        where it lies (device to device, not through the host)."""
+        meta = {"meta_ln_eps": self.ln_eps}
+        if self.is_v3:
+            meta["meta_rope_theta"] = self.rope_theta
+        return DinoEncoder({**meta, **self.params}, patch=self.patch, n_heads=self.n_heads,
+                           image_size=self.image_size, device=device)
+
     @staticmethod
-    def create() -> "DinoEncoder":
+    def create(device=None) -> "DinoEncoder":
         """The encoder of $GAUSSMART_DINO_WEIGHTS (an npz, or "random") or
-        of the first of DEFAULT_PATHS that exists, on the CPU."""
+        of the first of DEFAULT_PATHS that exists, on `device` (the CPU by
+        default). An npz is read one member at a time, each straight into
+        its buffer."""
         path = os.environ.get(WEIGHT_ENV)
         if path == "random":
             # testing escape hatch: a small random-weight encoder so the
             # training loop exercises the differentiable DINO path
-            return DinoEncoder.random()
+            return DinoEncoder.random(device=device)
         cands = ([path] if path else []) + DEFAULT_PATHS
         for c in cands:
             if c and os.path.exists(c):
                 with np.load(c) as z:
-                    params = {k: z[k] for k in z.files}
-                return DinoEncoder(
-                    params,
-                    patch=int(params.get("meta_patch", 16)),
-                    n_heads=int(params.get("meta_n_heads", 12)),
-                    image_size=int(params.get("meta_image_size", 224)))
+                    members = _NpzMembers(
+                        z, pinned=device is not None and torch.device(device).type == "cuda")
+                    return DinoEncoder(
+                        members,
+                        patch=int(members.get("meta_patch", 16)),
+                        n_heads=int(members.get("meta_n_heads", 12)),
+                        image_size=int(members.get("meta_image_size", 224)),
+                        device=device)
         raise FileNotFoundError(
             f"No DINO weights found (set ${WEIGHT_ENV} or place "
             f"{DEFAULT_PATHS[0]})")
@@ -270,11 +359,12 @@ class DinoEncoder(torch.nn.Module):
     @staticmethod
     def random(depth: int = 2, dim: int = 192, n_heads: int = 3,
                image_size: int = 64, patch: int = 16, seed: int = 0,
-               n_registers: int = 4) -> "DinoEncoder":
+               n_registers: int = 4, device=None) -> "DinoEncoder":
         """Random-weight DINOv3-architecture tower (RoPE + registers +
         LayerScale), the same arrays as the JAX package's for a seed."""
         return DinoEncoder(random_params(depth, dim, patch, seed, n_registers),
-                           patch=patch, n_heads=n_heads, image_size=image_size)
+                           patch=patch, n_heads=n_heads, image_size=image_size,
+                           device=device)
 
 
 def random_params(depth: int = 2, dim: int = 192, patch: int = 16, seed: int = 0,
@@ -317,12 +407,20 @@ def _convert_dinov3(sd: Dict[str, np.ndarray], cfg) -> Dict[str, np.ndarray]:
 
     Layout (transformers 4.57, modeling_dinov3_vit.py): embeddings.{cls_token,
     register_tokens, patch_embeddings.{weight,bias}}, layer.{i}.{norm1, norm2,
-    attention.{q,k,v,o}_proj, layer_scale{1,2}.lambda1, mlp.{up,down}_proj},
-    norm.{weight,bias}. key_bias=False -> zero k bias in the packed qkv_b."""
+    attention.{q,k,v,o}_proj, layer_scale{1,2}.lambda1, mlp.{up,down}_proj
+    (and mlp.gate_proj with use_gated_mlp)}, norm.{weight,bias}. The q/k/v
+    biases pack into qkv_b with zeros for the absent ones (key_bias=False);
+    with none of them, and for every other bias the state dict lacks
+    (mlp_bias=False, proj_bias=False), the entry is left out."""
     D = int(cfg.hidden_size)
+    gated = bool(getattr(cfg, "use_gated_mlp", False))
+    act = getattr(cfg, "hidden_act", "silu" if gated else "gelu")
+    if act != ("silu" if gated else "gelu"):
+        raise NotImplementedError(
+            f"DINOv3 with hidden_act={act!r} (gated={gated}): the encoder runs "
+            "gated SiLU and exact GELU blocks only")
     out = {
         "patch_w": sd["embeddings.patch_embeddings.weight"].reshape(D, -1).T,
-        "patch_b": sd["embeddings.patch_embeddings.bias"],
         "cls_token": sd["embeddings.cls_token"].reshape(-1),
         "norm_g": sd["norm.weight"],
         "norm_b": sd["norm.bias"],
@@ -332,38 +430,37 @@ def _convert_dinov3(sd: Dict[str, np.ndarray], cfg) -> Dict[str, np.ndarray]:
         "meta_n_heads": np.int32(cfg.num_attention_heads),
         "meta_image_size": np.int32(cfg.image_size),
     }
+
+    def put(key, name):
+        if name in sd:
+            out[key] = sd[name]
+
+    put("patch_b", "embeddings.patch_embeddings.bias")
     if int(getattr(cfg, "num_register_tokens", 0) or 0) > 0:
         out["register_tokens"] = sd["embeddings.register_tokens"].reshape(-1, D)
-    if getattr(cfg, "use_gated_mlp", False):
-        raise NotImplementedError(
-            "gated-MLP DINOv3 variants (7B) are not supported; the "
-            "reference uses vitb16 (plain MLP)")
+    mlp = {"gate": "gate", "up": "up", "down": "down"} if gated else {"fc1": "up", "fc2": "down"}
     i = 0
     while f"layer.{i}.attention.q_proj.weight" in sd:
-        pre = f"layer.{i}"
+        pre, blk = f"layer.{i}", f"blocks.{i}"
         q = sd[f"{pre}.attention.q_proj.weight"]
         k = sd[f"{pre}.attention.k_proj.weight"]
         v = sd[f"{pre}.attention.v_proj.weight"]
-        out[f"blocks.{i}.attn.qkv_w"] = np.concatenate([q, k, v], 0).T
-
-        def bias(name, key_pre=pre):
-            full = f"{key_pre}.attention.{name}"
-            return sd[full] if full in sd else np.zeros(D, np.float32)
-
-        out[f"blocks.{i}.attn.qkv_b"] = np.concatenate(
-            [bias("q_proj.bias"), bias("k_proj.bias"), bias("v_proj.bias")])
-        out[f"blocks.{i}.attn.proj_w"] = sd[f"{pre}.attention.o_proj.weight"].T
-        out[f"blocks.{i}.attn.proj_b"] = sd[f"{pre}.attention.o_proj.bias"]
-        out[f"blocks.{i}.norm1_g"] = sd[f"{pre}.norm1.weight"]
-        out[f"blocks.{i}.norm1_b"] = sd[f"{pre}.norm1.bias"]
-        out[f"blocks.{i}.norm2_g"] = sd[f"{pre}.norm2.weight"]
-        out[f"blocks.{i}.norm2_b"] = sd[f"{pre}.norm2.bias"]
-        out[f"blocks.{i}.ls1"] = sd[f"{pre}.layer_scale1.lambda1"]
-        out[f"blocks.{i}.ls2"] = sd[f"{pre}.layer_scale2.lambda1"]
-        out[f"blocks.{i}.fc1_w"] = sd[f"{pre}.mlp.up_proj.weight"].T
-        out[f"blocks.{i}.fc1_b"] = sd[f"{pre}.mlp.up_proj.bias"]
-        out[f"blocks.{i}.fc2_w"] = sd[f"{pre}.mlp.down_proj.weight"].T
-        out[f"blocks.{i}.fc2_b"] = sd[f"{pre}.mlp.down_proj.bias"]
+        out[f"{blk}.attn.qkv_w"] = np.concatenate([q, k, v], 0).T
+        qkv_b = [f"{pre}.attention.{n}_proj.bias" for n in "qkv"]
+        if any(n in sd for n in qkv_b):
+            out[f"{blk}.attn.qkv_b"] = np.concatenate(
+                [sd[n] if n in sd else np.zeros(D, np.float32) for n in qkv_b])
+        out[f"{blk}.attn.proj_w"] = sd[f"{pre}.attention.o_proj.weight"].T
+        put(f"{blk}.attn.proj_b", f"{pre}.attention.o_proj.bias")
+        out[f"{blk}.norm1_g"] = sd[f"{pre}.norm1.weight"]
+        out[f"{blk}.norm1_b"] = sd[f"{pre}.norm1.bias"]
+        out[f"{blk}.norm2_g"] = sd[f"{pre}.norm2.weight"]
+        out[f"{blk}.norm2_b"] = sd[f"{pre}.norm2.bias"]
+        out[f"{blk}.ls1"] = sd[f"{pre}.layer_scale1.lambda1"]
+        out[f"{blk}.ls2"] = sd[f"{pre}.layer_scale2.lambda1"]
+        for ours, theirs in mlp.items():
+            out[f"{blk}.{ours}_w"] = sd[f"{pre}.mlp.{theirs}_proj.weight"].T
+            put(f"{blk}.{ours}_b", f"{pre}.mlp.{theirs}_proj.bias")
         i += 1
     return out
 

@@ -79,10 +79,9 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     if args.random_encoder:
-        enc = DinoEncoder.random(depth=2, dim=192, image_size=224)
+        enc = DinoEncoder.random(depth=2, dim=192, image_size=224, device=device)
     else:
-        enc = DinoEncoder.create()
-    enc = enc.to(device)
+        enc = DinoEncoder.create(device=device)
 
     rgb = read_rgb(args.image)
     heat = cls_patch_heatmap(enc, rgb.transpose(2, 0, 1))

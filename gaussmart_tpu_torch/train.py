@@ -37,7 +37,6 @@ to grow and train_stats.csv's n_dropped column is always 0.
 """
 from __future__ import annotations
 
-import copy
 import csv
 import json
 import os
@@ -302,21 +301,21 @@ def _build_dino_fn(lambda_dino: float, start_iter: int, mode: str, device):
     are found: the term is then 0, as in the JAX trainer. Past `start_iter`
     it is losses.dino_term; at or below it the tower is skipped and the
     term is 0 with a zero gradient, what JAX's where(iteration >
-    start_iter, term, 0) gives. The encoder is copied once to each device
-    it meets (a dp slot's view lies on its slot's device; slots sharing a
-    card share one copy)."""
+    start_iter, term, 0) gives. The encoder is read straight onto the
+    step's device (DinoEncoder.create: one array on the host at a time)
+    and copied device to device to any other device it meets (a dp slot's
+    view lies on its slot's device; slots sharing a card share one copy)."""
     try:
-        encoder = DinoEncoder.create()
+        encoder = DinoEncoder.create(device=torch.empty(0, device=device).device)
     except FileNotFoundError as e:
         print(f"[dino] encoder unavailable ({e}); DINO loss disabled")
         return None
-    encoders = {torch.device("cpu"): encoder}
+    encoders = {encoder.device: encoder}
 
     def on(dev: torch.device) -> DinoEncoder:
         if dev not in encoders:
-            encoders[dev] = copy.deepcopy(encoder).to(dev)
+            encoders[dev] = encoder.to_device(dev)
         return encoders[dev]
-    on(torch.empty(0, device=device).device)    # placed before the first step
 
     def fn(image, gt, iteration: int):
         if iteration <= start_iter:

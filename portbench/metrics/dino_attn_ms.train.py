@@ -1,0 +1,12 @@
+"""Device milliseconds per training step of the DINO tower's attention
+branches: the operations launched inside every `losses.dino.*.attn` span
+(each block's norm, q/k/v, RoPE, attention, output projection, LayerScale
+and residual, in the render's and the target's forwards), from the window
+a traced run keeps with the program's spans on (spans.traced). None where
+the program has no such span."""
+
+
+def read(rec):
+    device = (rec.get("spans") or {}).get("device_ms") or {}
+    ms = [v for k, v in device.items() if k.startswith("losses.dino.") and k.endswith(".attn")]
+    return sum(ms) if ms else None

@@ -123,13 +123,18 @@ def test_a_train_step_gives_the_span_tree(setup):
             "losses.regularization", "losses.dino", "losses.dino.render",
             "losses.dino.target", "backward", "backward.dino", "backward.raster",
             "update.stats", "update.adam"}
-    assert set(names) == want
+    # each tower block's two branches, named under the span that called the tower
+    tower = {f"losses.dino.{call}.{branch}" for call in ("render", "target")
+             for branch in ("attn", "mlp")}
+    assert set(names) == want | tower
     assert names.count("step") == 1 and names[-1] == "step"
     assert all(s.id == ITERATION for s in spans)
     parent = {s.name: s.parent for s in spans}
     assert parent["step"] is None
     assert parent["render.binning.sync"] == "render.binning"
     assert parent["losses.dino.render"] == parent["losses.dino.target"] == "losses.dino"
+    for name in tower:
+        assert parent[name] == name.rsplit(".", 1)[0], name
     for name in ("render.preprocess", "render.binning", "render.composite", "render.decode",
                  "losses.photometric", "losses.regularization", "losses.dino", "backward",
                  "update.stats", "update.adam"):
