@@ -160,6 +160,15 @@ Phases, each printing its own lines; any failure exits non-zero:
      against render_arrays every output bit-equal; one K6 and one K1 launch
      a render(); K6's device time beside its byte bound, the plain chain's
      device time and launches, and both frames'.
+ 14. the binning kernel (scripts/bench_binning.py runs it alone): K7
+     (csrc/binning.cu) against binning_plain, every Binned field bit-equal
+     with and without the reduction plan, the card synchronised after each
+     of its three kernels, on the phase-4 model's 8 views (the training
+     chain's prep and K6's) and on the GARDEN_SPLATS-splat state's; render()
+     and a training step through K7 against the same calls through
+     binning_plain (the parent path), every output bit-equal; K7's device
+     time beside its byte bound, the whole binning's (its torch.sort) and
+     the plain chain's.
 N_SLOTS slots on one card measure the cost of the two-pass fold, not
 scaling across cards.
 Each path's kernel launch counts are set to 0 just before it runs and read
@@ -207,8 +216,9 @@ KERNELS = {"raster_fwd": ("raster_fwd", "gaussmart_tpu/render/raster_pallas.py:3
            "raster_fwd_seeded": ("raster_fwd", "gaussmart_tpu/render/raster_pallas.py:327"),
            "raster_bwd_seeded": ("raster_bwd", "gaussmart_tpu/render/raster_pallas.py:499"),
            # XLA fused this chain on the TPU: no Pallas kernel
-           "preprocess_fwd": ("preprocess", "none (raster_common.preprocess, fused by XLA)")}
-SOURCES = ("raster_fwd", "raster_bwd", "segsum", "preprocess")
+           "preprocess_fwd": ("preprocess", "none (raster_common.preprocess, fused by XLA)"),
+           "binning": ("binning", "none (raster_pallas.py::_binning is XLA)")}
+SOURCES = ("raster_fwd", "raster_bwd", "segsum", "preprocess", "binning")
 # the template parameters of the kernels' variants, for the ptxas report
 TEMPLATE_PARAMS = {"raster_fwd_kernel": ("seeded",),
                    "raster_bwd_kernel": ("need_dist", "need_med", "seeded"),
@@ -1017,7 +1027,10 @@ def read_counts():
 
 def only(counts, **want):
     """Whether the kernels named in `want` launched that often and every
-    other kernel not at all."""
+    other kernel not at all. Unless `want` names it, K7 (binning, counted
+    once a binning) is expected once per K1 launch and once per depth
+    stratum of a Gaussian-sharded frame (two K3 launches)."""
+    want.setdefault("binning", want.get("raster_fwd", 0) + want.get("raster_fwd_seeded", 0) // 2)
     return all(n == want.get(k, 0) for k, n in counts.items())
 
 
@@ -1319,6 +1332,225 @@ def fused_preprocess_path(state_s, cams, seed, device, card):
     del garden
     torch.cuda.empty_cache()
     return err, (k6_ms, plain_ms, None), (bound_ms, "bytes")
+
+
+# --- the binning kernel (K7) -------------------------------------------------
+
+@contextlib.contextmanager
+def synced_launches():
+    """Every hand-written kernel entry loaded in the block synchronises the
+    card after its launch, so that a fault surfaces at the launch that made
+    it (the wrappers raise the entry's own error code)."""
+    import torch
+    from gaussmart_tpu_torch import kernels
+
+    def make(load):
+        def synced_load(*a, **kw):
+            entry = load(*a, **kw)
+
+            def call(*args):
+                err = entry(*args)
+                torch.cuda.synchronize()
+                return err
+            return call
+        return synced_load
+    with replaced(kernels, "load", make):
+        yield
+
+
+def same_tensor(a, b):
+    import torch
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def hold_binning(label, prep, width, height, conics=None):
+    """K7 against binning_plain on one prep: every Binned field bit-equal,
+    lengths and padding tails included, with the plan and without it (then
+    inv_slots and slot_tile empty); one binning counted, the card
+    synchronised after each of its kernels. Returns (rectangle pairs, live
+    pairs)."""
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    tiles = rt.tile_grid(width, height)
+    if conics is None:
+        conics = rt.build_conics(prep)
+    ref = rt.binning_plain(prep, *tiles, conics)
+    with synced_launches():
+        zero_counts()
+        got = rt.binning(prep, *tiles, conics)
+        launches = read_counts()["binning"]
+        bare = rt.binning(prep, *tiles, conics, plan=False)
+    torch.cuda.synchronize()
+    differ = [f for f in rt.Binned._fields if not same_tensor(getattr(got, f), getattr(ref, f))]
+    differ += [f"{f} without the plan" for f in rt.Binned._fields
+               if f not in ("inv_slots", "slot_tile")
+               and not same_tensor(getattr(bare, f), getattr(ref, f))]
+    plan_empty = bare.inv_slots.numel() == 0 and bare.slot_tile.numel() == 0
+    n_rect, n_live = ref.entry_ids.shape[0], int(ref.slot_starts[-1])
+    print(f"[binning] {label}, {prep.depth.shape[0]} splats: {n_rect} rectangle pairs, "
+          f"{n_live} live ({100 * n_live / max(n_rect, 1):.2f}%); {launches} K7 binning; "
+          f"every Binned field bit-equal to binning_plain {not differ}"
+          + (f" (differing: {', '.join(differ)})" if differ else "")
+          + f"; without the plan inv_slots and slot_tile empty {plan_empty}")
+    if differ or launches != 1 or not plan_empty:
+        fail(f"[binning] {label}: K7 is not bit-equal to binning_plain, or counted "
+             f"{launches} binnings")
+    return n_rect, n_live
+
+
+def leaves(x):
+    """The tensors and numbers of a step's outputs, in order."""
+    if isinstance(x, (tuple, list)):
+        return [leaf for v in x for leaf in leaves(v)]
+    if hasattr(x, "__dataclass_fields__"):
+        return leaves(list(vars(x).values()))
+    return [x]
+
+
+def hold_binning_paths(label, state, cams, gts, device):
+    """render() (K6 and K7) and a training step (K7 with the plan, then K2
+    and K5 through it) against the same calls with binning_plain in K7's
+    place, the parent path: every output bit-equal."""
+    import torch
+    from gaussmart_tpu_torch.config import OptimizationParams
+    from gaussmart_tpu_torch.optim import init_adam
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    from gaussmart_tpu_torch.render.api import render
+    from gaussmart_tpu_torch.train_lib import make_train_step
+    bg = torch.zeros(3, device=device)
+    step = make_train_step(OptimizationParams(), sh_degree=state.active_sh_degree,
+                           white_background=False)
+    adam = init_adam(state.params)
+
+    def run():
+        with torch.inference_mode():
+            frames = [render(cam, state, bg) for cam in cams]
+        out = step(state.params, adam, state.aux, cams[0], gts[0], 15001)
+        torch.cuda.synchronize()
+        return frames, leaves(out[:4])
+    zero_counts()
+    frames, stepped = run()
+    counts = read_counts()
+    with replaced(rt, "binning", lambda orig: rt.binning_plain):
+        zero_counts()
+        ref_frames, ref_stepped = run()
+        ref_counts = read_counts()
+    differ = sorted({k for f, r in zip(frames, ref_frames) for k in r
+                     if not same_tensor(f[k], r[k])})
+    n_step = sum(isinstance(a, torch.Tensor) for a in stepped)
+    step_differ = [i for i, (a, b) in enumerate(zip(stepped, ref_stepped))
+                   if not (same_tensor(a, b) if isinstance(a, torch.Tensor) else a == b)]
+    print(f"[binning] {label}: {len(cams)} render() frames and a training step through K7 "
+          f"against binning_plain's: frame outputs not bit-equal {differ}; step outputs "
+          f"({n_step} tensors) not bit-equal {len(step_differ)}; K7 binnings "
+          f"{counts['binning']} (binning_plain's run {ref_counts['binning']})")
+    if (differ or step_differ or len(stepped) != len(ref_stepped)
+            or counts["binning"] != len(cams) + 1 or ref_counts["binning"]):
+        fail(f"[binning] {label}: render() or the training step differs from the parent "
+             "path, or K7 did not bin each frame once")
+
+
+def binning_bytes(n, n_live, n_tiles):
+    """Bytes binning must move: each splat's centre, rx, ry, depth, valid
+    flag and 8 conic terms read once (53 bytes), each live pair written
+    once as an 8-byte key and a 4-byte splat id, and the tile ranges."""
+    return n * 53 + n_live * 12 + n_tiles * 8
+
+
+def time_binning(label, prep, width, height, conics, card):
+    """K7's three kernels' device time, the whole binning's through the
+    wrapper (its cumsum and torch.sort, device and CUDA events), with and
+    without the plan, beside the byte bound; the plain chain's. Returns
+    (K7 ms, plain ms, bound ms) without the plan (the served frame's)."""
+    import torch
+    from gaussmart_tpu_torch.render import raster_tiled as rt
+    tiles = rt.tile_grid(width, height)
+    n = prep.depth.shape[0]
+    with torch.inference_mode():
+        n_live = int(rt.binning(prep, *tiles, conics, plan=False).slot_starts[-1])
+        dev_ms, top = device_kernel_ms(lambda: rt.binning(prep, *tiles, conics, plan=False),
+                                       FRAMES)
+        plan_ms, plan_top = device_kernel_ms(lambda: rt.binning(prep, *tiles, conics),
+                                             FRAMES)
+        wall_ms = time_ms(lambda: rt.binning(prep, *tiles, conics, plan=False), FRAMES)
+        plain_ms, plain_top = device_kernel_ms(
+            lambda: rt.binning_plain(prep, *tiles, conics, plan=False), 5)
+        plain_plan_ms, _ = device_kernel_ms(lambda: rt.binning_plain(prep, *tiles, conics), 5)
+        plain_wall = time_ms(lambda: rt.binning_plain(prep, *tiles, conics, plan=False), 5)
+    nbytes = binning_bytes(n, n_live, tiles[0] * tiles[1])
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    if dev_ms is None:
+        print(f"[time] {label}: device times not measured (the profiler recorded no "
+              "device events)")
+        return None, None, bound_ms
+
+    def k7(rows):
+        found = ((re.search(r"bin_(count|emit|finish)_kernel", name), ms) for name, ms, _ in rows)
+        return {m.group(0): ms for m, ms in found if m}
+
+    def launches(rows):
+        return sum(c for _, _, c in rows)
+    own, own_plan = k7(top), k7(plan_top)
+    sort_ms = sum(ms for name, ms, _ in top if "Sort" in name or "sort" in name)
+    k7_ms = sum(own.values())
+    print(f"[time] {card}: {label}, {n} splats, {n_live} live pairs: K7's kernels "
+          f"{k7_ms:.4f} ms device (" + ", ".join(f"{k} {ms:.4f}" for k, ms in own.items())
+          + f"; with the plan {sum(own_plan.values()):.4f}), bound {bound_ms:.4f} ms "
+          f"({nbytes / 1e9:.3f} GB at 3.35 TB/s: {100 * bound_ms / k7_ms:.1f}% of it); "
+          f"binning through the wrapper {dev_ms:.4f} ms device in {launches(top):g} "
+          f"launches (the sort {sort_ms:.4f} ms), {wall_ms:.4f} ms by CUDA events; with "
+          f"the plan {plan_ms:.4f} ms device in {launches(plan_top):g} launches; "
+          f"binning_plain {plain_ms:.4f} ms device in {launches(plain_top):g} launches "
+          f"({plain_wall:.4f} ms by CUDA events), with the plan {plain_plan_ms:.4f} ms; "
+          "top: " + "; ".join(f"{name[:50]} {ms:.4f} ms x{c:g}" for name, ms, c in top[:8]))
+    return k7_ms, plain_ms, bound_ms
+
+
+def binning_path(state_s, cams, seed, device, card):
+    """Phase 14: K7 against binning_plain on the phase-4 model's views
+    (the training chain's prep and K6's) and on a garden-scale state's;
+    render() and a training step against the parent path; timings at both
+    sizes. Returns ((K7 ms, plain ms, None), (bound ms, "bytes")) at garden
+    scale."""
+    import torch
+    from gaussmart_tpu_torch.render.preprocess_fused import preprocess_fused
+    views = [c.params(device) for c in cams]
+    with torch.inference_mode():
+        for i, cam in enumerate(views):
+            hold_binning(f"phase-4 model, view {i}, the training chain's prep",
+                         frame_prep(state_s, cam, SH_DEGREE), WIDTH, HEIGHT)
+            fused = preprocess_fused(state_s, cam)
+            hold_binning(f"phase-4 model, view {i}, K6's prep", fused.prep, WIDTH, HEIGHT,
+                         fused.conics)
+    gts = [torch.rand(3, HEIGHT, WIDTH, device=device,
+                      generator=torch.Generator(device=device).manual_seed(seed))]
+    hold_binning_paths(f"phase-4 model {WIDTH}x{HEIGHT}", state_s, views[:2], gts, device)
+    with torch.inference_mode():
+        fused = preprocess_fused(state_s, views[0])
+    time_binning(f"phase-4 model {WIDTH}x{HEIGHT}", fused.prep, WIDTH, HEIGHT, fused.conics,
+                 card)
+
+    garden = garden_scale_state(seed, device)
+    gcams = [c.params(device) for c in bench_cameras(3, GARDEN_WIDTH, GARDEN_HEIGHT)]
+    with torch.inference_mode():
+        for i, cam in enumerate(gcams):
+            fused = preprocess_fused(garden, cam)
+            hold_binning(f"garden-scale state, view {i}, K6's prep", fused.prep,
+                         GARDEN_WIDTH, GARDEN_HEIGHT, fused.conics)
+        hold_binning("garden-scale state, view 0, the training chain's prep",
+                     frame_prep(garden, gcams[0], SH_DEGREE), GARDEN_WIDTH, GARDEN_HEIGHT)
+    ggts = [torch.rand(3, GARDEN_HEIGHT, GARDEN_WIDTH, device=device,
+                       generator=torch.Generator(device=device).manual_seed(seed))]
+    hold_binning_paths(f"garden-scale state {GARDEN_WIDTH}x{GARDEN_HEIGHT}", garden,
+                       gcams[:2], ggts, device)
+    with torch.inference_mode():
+        fused = preprocess_fused(garden, gcams[0])
+    k7_ms, plain_ms, bound_ms = time_binning(
+        f"garden-scale state {GARDEN_WIDTH}x{GARDEN_HEIGHT}", fused.prep, GARDEN_WIDTH,
+        GARDEN_HEIGHT, fused.conics, card)
+    del garden, fused
+    torch.cuda.empty_cache()
+    return (k7_ms, plain_ms, None), (bound_ms, "bytes")
 
 
 def counted_train(argv, after_step):
@@ -4095,6 +4327,11 @@ def main(argv=None):
         errs["preprocess_fwd"] = k6_err
         t_phase = phase_wall("13 (fused preprocess)", t_phase)
 
+        # 14. the binning kernel (K7)
+        k7_times, k7_bound = binning_path(state_s, cams, args.seed, dev, card)
+        errs["binning"] = 0.0
+        t_phase = phase_wall("14 (binning)", t_phase)
+
         # 5. the training paths
         counts, losses = train_path(root, args.seed, N_SPLATS, WIDTH, HEIGHT, dev)
         mp_counts = train_slots_path(root, dev, losses)
@@ -4181,8 +4418,9 @@ def main(argv=None):
                 "segsum": counts["segsum"],
                 "raster_fwd_seeded": mp_counts["raster_fwd_seeded"],
                 "raster_bwd_seeded": mp_counts["raster_bwd_seeded"],
-                "preprocess_fwd": counts["preprocess_fwd"]}
+                "preprocess_fwd": counts["preprocess_fwd"], "binning": counts["binning"]}
     times["preprocess_fwd"], bounds["preprocess_fwd"] = k6_times, k6_bound
+    times["binning"], bounds["binning"] = k7_times, k7_bound
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",
         "source": f"gaussmart_tpu_torch/csrc/{src}.cu", "replaces": replaces,

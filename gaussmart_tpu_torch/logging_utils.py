@@ -86,9 +86,10 @@ def profile_trace(logdir: Optional[str]):
 
 # --- spans and counters ----------------------------------------------------
 
-# the launch counters of the hand-written kernels: K1, K2, K3, K4, K5, K6
+# the launch counters of the hand-written kernels: K1, K2, K3, K4, K5, K6, K7
+# (binning: one a binning, whose three kernels launch together)
 LAUNCHES = ("raster_fwd", "raster_bwd", "raster_fwd_seeded", "raster_bwd_seeded", "segsum",
-            "preprocess_fwd")
+            "preprocess_fwd", "binning")
 MAX_SPANS = 1 << 17     # the buffer keeps the newest spans
 
 

@@ -362,8 +362,9 @@ def render_gaussian_sharded(mesh: Mesh, prep, means2d, bg: torch.Tensor, width: 
 
     if backend == "pallas":
         tiles = raster_tiled.tile_grid(width, height)
+        plan = raster_tiled.wants_plan(*prep_s, means2d_s)
         with torch.no_grad():
-            binned = [raster_tiled.binning(p, *tiles) for p, _ in strata]
+            binned = [raster_tiled.binning(p, *tiles, plan=plan) for p, _ in strata]
 
         def raster(i, init):
             p, m = strata[i]

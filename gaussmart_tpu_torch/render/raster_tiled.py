@@ -18,7 +18,10 @@ Three forward stages, the same semantics as the JAX package's tiled path:
                   terms of its interval test (build_conics), which the
                   kernel's cull reuses, and the backward's reduction plan:
                   the splat-major work-slot map of its (splat, tile) pairs
-                  (inv_slots, slot_starts, slot_tile).
+                  (inv_slots, slot_starts, slot_tile), written only where
+                  a backward can run (wants_plan). For CUDA tensors it is
+                  K7, csrc/binning.cu, three kernels around one torch.sort;
+                  binning_plain, its twin, for CPU tensors.
   composite_tiles the forward compositor K1: the CUDA kernel
                   csrc/raster_fwd.cu for CUDA tensors, composite_tiles_plain
                   for CPU tensors. A CUDA tensor never takes the plain
@@ -75,6 +78,12 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p] * 2)
 _SEEDED_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                         + [ctypes.c_void_p] * 3)
+_SPLAT_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 3)
+_COUNT_ARGTYPES = _SPLAT_ARGTYPES + [ctypes.c_void_p] * 4
+_EMIT_ARGTYPES = _SPLAT_ARGTYPES + [ctypes.c_void_p] * 6
+_FINISH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p] * 5)
 
 
 def tile_grid(width: int, height: int) -> Tuple[int, int]:
@@ -186,9 +195,11 @@ class Binned(NamedTuple):
     inv_slots    [M'] int32: the entry position of each work slot. Slots
                  are the (splat, tile) pairs in splat-major order (a
                  splat's tiles ascending), as the JAX package's inv_slots.
+                 Empty where no backward can run (binning's `plan`).
     slot_starts  [N+1] int32: splat s owns slots [slot_starts[s],
                  slot_starts[s+1]); slot_starts[N] is the live pair count.
-    slot_tile    [M'] int32: each slot's tile (for the walk-window skip).
+    slot_tile    [M'] int32: each slot's tile (for the walk-window skip);
+                 empty with inv_slots.
 
     Within a splat, slot order is entry order (one depth, ascending
     tiles), so a sum in slot order adds a splat's rows in entry order."""
@@ -200,11 +211,24 @@ class Binned(NamedTuple):
     slot_tile: torch.Tensor
 
 
-def binning(prep: Preprocessed, tiles_x: int, tiles_y: int,
-            conics: Optional[torch.Tensor] = None) -> Binned:
-    """The (splat, tile) pairs of the frame sorted by (tile, depth), and
-    the backward's reduction plan (Binned). `conics` is build_conics(prep)
-    where the caller has it already."""
+def wants_plan(*tensors) -> bool:
+    """Whether a backward can run through the compositor on these inputs:
+    grad enabled and one of them requiring it. Only then does binning
+    write the reduction plan (inv_slots, slot_tile)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _empty_plan(dev) -> torch.Tensor:
+    return torch.empty(0, dtype=torch.int32, device=dev)
+
+
+def binning_plain(prep: Preprocessed, tiles_x: int, tiles_y: int,
+                  conics: Optional[torch.Tensor] = None, plan: bool = True) -> Binned:
+    """Plain PyTorch version of K7 (binning): the (splat, tile) pairs of
+    the frame sorted by (tile, depth), and the backward's reduction plan
+    (Binned; inv_slots and slot_tile empty unless `plan`). `conics` is
+    build_conics(prep) where the caller has it already."""
     dev = prep.depth.device
     N = prep.depth.shape[0]
     n_tiles = tiles_x * tiles_y
@@ -263,14 +287,109 @@ def binning(prep: Preprocessed, tiles_x: int, tiles_y: int,
     # permutation maps entry position -> slot and its inverse is one
     # integer scatter; a splat's slots start at its first rect row's
     # exclusive count (a splat with no rows gets an empty range)
-    inv_slots = torch.empty(n_rect, dtype=torch.int32, device=dev).scatter_(
-        0, perm, torch.arange(n_rect, dtype=torch.int32, device=dev))
     first_row = torch.cat([row0, row0.new_full((1,), n_rows)])
     slot_starts = torch.cat([cum.new_zeros(1), cum])[first_row].to(torch.int32)
     if is_tracing():
         count("render.live_pairs", slot_starts[N])
+    if not plan:
+        return Binned(entry_ids, tile_ranges.contiguous(), conics, _empty_plan(dev),
+                      slot_starts, _empty_plan(dev))
+    inv_slots = torch.empty(n_rect, dtype=torch.int32, device=dev).scatter_(
+        0, perm, torch.arange(n_rect, dtype=torch.int32, device=dev))
     return Binned(entry_ids, tile_ranges.contiguous(), conics, inv_slots, slot_starts,
                   tile.to(torch.int32))
+
+
+def binning(prep: Preprocessed, tiles_x: int, tiles_y: int,
+            conics: Optional[torch.Tensor] = None, plan: bool = True) -> Binned:
+    """K7: the (splat, tile) pairs of the frame sorted by (tile, depth),
+    and the backward's reduction plan (Binned), bit-equal to
+    binning_plain. `conics` is build_conics(prep) where the caller has it
+    already; without `plan` (no backward can run: wants_plan) inv_slots and
+    slot_tile are empty.
+
+    CPU tensors take binning_plain. CUDA tensors launch csrc/binning.cu on
+    the current stream or raise: bin_count, the scan of its counts, the
+    frame's one host sync (render.binning.sync), bin_emit, torch.sort of
+    the live keys, bin_finish; the launch counter "binning" adds 1 a
+    binning, after bin_count's launch."""
+    dev = prep.depth.device
+    if dev.type == "cpu":
+        return binning_plain(prep, tiles_x, tiles_y, conics, plan)
+    if dev.type != "cuda":
+        raise ValueError(f"binning runs on CPU or CUDA tensors, not {dev}")
+    return _binning_k7(prep, tiles_x, tiles_y,
+                       build_conics(prep) if conics is None else conics, plan)
+
+
+def _binning_k7(prep: Preprocessed, tiles_x: int, tiles_y: int, conics: torch.Tensor,
+                plan: bool) -> Binned:
+    dev = prep.depth.device
+    N = prep.depth.shape[0]
+    n_tiles = tiles_x * tiles_y
+    center2d, depth = prep.center2d, prep.depth.contiguous()
+    rx, ry, valid = prep.rx.contiguous(), prep.ry.contiguous(), prep.valid.contiguous()
+    kernels.check_tensors((("depth", depth, torch.float32, 1), ("rx", rx, torch.float32, 1),
+                           ("ry", ry, torch.float32, 1), ("valid", valid, torch.bool, 1),
+                           ("conics", conics, torch.float32, 2)), dev)
+    if (center2d.device != dev or center2d.dtype != torch.float32
+            or tuple(center2d.shape) != (N, 2) or center2d.stride(1) != 1
+            or any(x.shape[0] != N for x in (rx, ry, valid))
+            or tuple(conics.shape) != (N + 1, FC)):
+        raise ValueError(f"binning: center2d {tuple(center2d.shape)} must be [{N}, 2] float32 "
+                         f"with unit column stride, rx, ry, valid [{N}] and conics "
+                         f"{tuple(conics.shape)} [{N + 1}, {FC}]")
+    if conics.data_ptr() % 16:
+        raise ValueError("conics must start on a 16-byte boundary: binning reads its rows "
+                         "with 16-byte loads")
+    splats = (center2d.data_ptr(), center2d.stride(0), rx.data_ptr(), ry.data_ptr(),
+              valid.data_ptr(), conics.data_ptr(), N, tiles_x, tiles_y)
+    i32 = dict(dtype=torch.int32, device=dev)
+    counts = torch.empty(N, **i32)
+    slot_starts = torch.empty(N + 1, **i32)
+    totals = torch.empty(3, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = kernels.load("binning", "bin_count", _COUNT_ARGTYPES)(
+            *splats, counts.data_ptr(), slot_starts.data_ptr(), totals.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"bin_count launch failed with CUDA error {err}")
+        count("binning", 1)       # the binning went through K7
+        torch.cumsum(counts, 0, dtype=torch.int32, out=slot_starts[1:])
+        # the frame's one host sync: rect and live pair counts
+        with span("render.binning.sync"):
+            n_rect, n_live, _ = totals.tolist()
+        count("render.rect_pairs", n_rect)
+        if n_rect >= 2 ** 31:
+            raise ValueError(f"binning: {n_rect} rectangle pairs overflow the int32 entry "
+                             "buffers")
+        if n_rect == 0:
+            empty = _empty_plan(dev)
+            return Binned(empty, torch.zeros(n_tiles, 2, **i32), conics, empty, slot_starts,
+                          empty)
+        keys = torch.empty(n_live, dtype=torch.int64, device=dev)
+        pair_sid = torch.empty(n_live, **i32)
+        slot_tile = torch.empty(n_rect, **i32) if plan else _empty_plan(dev)
+        tile_ptr = slot_tile.data_ptr() if plan else None
+        if n_live:
+            err = kernels.load("binning", "bin_emit", _EMIT_ARGTYPES)(
+                *splats, depth.data_ptr(), slot_starts.data_ptr(), keys.data_ptr(),
+                pair_sid.data_ptr(), tile_ptr, stream)
+            if err != 0:
+                raise RuntimeError(f"bin_emit launch failed with CUDA error {err}")
+        keys, perm = torch.sort(keys, stable=True)
+        entry_ids = torch.empty(n_rect, **i32)
+        tile_ranges = torch.empty(n_tiles, 2, **i32)
+        inv_slots = torch.empty(n_rect, **i32) if plan else _empty_plan(dev)
+        err = kernels.load("binning", "bin_finish", _FINISH_ARGTYPES)(
+            keys.data_ptr(), perm.data_ptr(), pair_sid.data_ptr(), totals.data_ptr(), n_live,
+            n_rect, N, n_tiles, entry_ids.data_ptr(), tile_ranges.data_ptr(),
+            inv_slots.data_ptr() if plan else None, tile_ptr, stream)
+        if err != 0:
+            raise RuntimeError(f"bin_finish launch failed with CUDA error {err}")
+    if is_tracing():
+        count("render.live_pairs", slot_starts[N])
+    return Binned(entry_ids, tile_ranges, conics, inv_slots, slot_starts, slot_tile)
 
 
 def warp_pixels(device=None) -> torch.Tensor:
@@ -852,8 +971,9 @@ def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,
         with span("render.preprocess"):
             blob = build_blob(prep, means2d, width, height)
     if binned is None:
+        plan = wants_plan(blob, *(init_state or {}).values())
         with torch.no_grad(), span("render.binning"):
-            binned = binning(prep, tiles_x, tiles_y, conics)
+            binned = binning(prep, tiles_x, tiles_y, conics, plan)
     with span("render.composite"):
         if init_state is None:
             fb, _ = RasterCore.apply(blob, binned, width, height, need_dist_grad,
