@@ -14,11 +14,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      spills fails);
   3. each kernel against its plain PyTorch version on the same inputs:
      raster_fwd (K1), raster_bwd (K2) with a fixed-seed cotangent, segsum
-     (K5) on K2's rows through the binning's work-slot map on both of its
-     routes (compact: the walked rows only; segsum: every live row)
-     against its plain version on a CPU copy, and the per-splat gradients
-     of grad_reduce's three routes (compact and segsum bit-equal, scatter
-     within tolerance), at the tests' small scene and at full width;
+     (K5) on K2's rows through the binning's work-slot map (the walked rows
+     only, as grad_reduce reads them) against its plain version on a CPU
+     copy, at the tests' small scene and at full width;
      raster_fwd_seeded (K3) and raster_bwd_seeded (K4, and K5 on its rows)
      on the second of N_SLOTS depth strata of each frame, seeded as the
      Gaussian-sharded fold seeds it, and on the training frame's first
@@ -27,8 +25,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      oracle on the small scene; the whole backward's determinism: two
      training steps (single-device, Gaussian-sharded and data-parallel)
      from the same state give bit-equal gradients on every parameter and
-     on means2d under the default route (and, printed only, under
-     scatter);
+     on means2d;
   4. the serving path: a trained-model directory (100k splats, SH degree 3,
      8 views at 776x584, made from --seed) rendered by
      gaussmart_tpu_torch.render_cli, its saved renders held against
@@ -40,9 +37,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      targets, bench.py's 100k-point cloud) trained by
      gaussmart_tpu_torch.train.main for TRAIN_ITERS iterations (densify,
      eval, save and checkpoint on the way), resumed from its checkpoint
-     for RESUME_ITERS more, then trained SEGSUM_ITERS iterations under
-     GMT_GRAD_REDUCE=segsum (their losses equal the default route's to the
-     bit); then the same schedule Gaussian-sharded
+     for RESUME_ITERS more; then the same schedule Gaussian-sharded
      (--n_devices N_SLOTS --parallel_mode mp: K3/K4) with its resume, and
      DP_ITERS camera data-parallel iterations (--n_devices N_SLOTS);
   6. timings with CUDA events (median over FRAMES calls after warm-up):
@@ -51,8 +46,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      Gaussian-sharded over N_SLOTS slots (iterations/s, per-stage
      breakdown, device busy share from torch.profiler), and each kernel,
      its plain version and the library call that computes the same
-     function; K5 per route, kernel only and as the whole route in the
-     backward against index_add_'s; each kernel's bound from this run's
+     function; K5 kernel only and grad_reduce whole, beside
+     torch.segment_reduce; each kernel's bound from this run's
      inputs, and K1's and
      K3's (entry, warp) pairs: walked, with no pixel passing the alpha
      test, skipped by the band cull (failing if it would skip a pair that
@@ -202,7 +197,7 @@ WIDTH, HEIGHT, N_SPLATS, SH_DEGREE, N_VIEWS = 776, 584, 100_000, 3, 8
 FOVX, FOVY = 1.2, 0.9
 ITERATION = 30000
 TRAIN_VIEWS = 4           # bench.py's 4 cameras
-TRAIN_ITERS, RESUME_ITERS, SEGSUM_ITERS, DP_ITERS = 30, 2, 5, 3
+TRAIN_ITERS, RESUME_ITERS, DP_ITERS = 30, 2, 3
 N_SLOTS = 4               # device slots of the multi-device paths, all on the card
 EVAL_RENDERS = 5          # train.report_eval: 5 train views, no test split
 FRAMES = 20               # timed calls per measurement (median)
@@ -253,7 +248,7 @@ OPS_PER_SEED_GRAD = 3
 FLOAT_TOL = 1e-4          # K1 vs plain, every float channel
 INT_AGREE = 0.999         # K1 vs plain, n_contrib / med_e pixel share
 BWD_TOL = 1e-5            # K2 vs plain, per column, of the column's max |value|
-SEGSUM_TOL = 1e-5         # K5 vs plain and scatter vs compact, likewise
+SEGSUM_TOL = 1e-5         # K5 vs plain, likewise
 GRAD_ATOL, GRAD_RTOL = 3e-3, 2e-2   # tiled vs dense gradients (x max |g|)
 PNG_TOL = 1               # saved render vs in-memory render, 8-bit levels
 SHARDED_TOL = 5e-4        # Gaussian-sharded vs single-device renders (test_parallel.py)
@@ -683,17 +678,6 @@ def hold_forward(label, kernel, got, ref):
     return err
 
 
-@contextlib.contextmanager
-def grad_reduce_route(mode):
-    """GMT_GRAD_REDUCE=`mode` inside the block (grad_reduce reads it on
-    every backward)."""
-    os.environ["GMT_GRAD_REDUCE"] = mode
-    try:
-        yield
-    finally:
-        del os.environ["GMT_GRAD_REDUCE"]
-
-
 def worst(*errs):
     """{kernel: the largest max abs err} over dicts of some of KERNELS."""
     return {k: max(e.get(k, 0.0) for e in errs) for k in KERNELS}
@@ -712,12 +696,10 @@ def random_cotangent(fb, width, height, channels, seed=1):
 
 
 def hold_reduction(label, rows, binned, ints):
-    """K5 on `rows` (K2's or K4's) through the binning's work-slot map, on
-    the compact route (walk test) and the segsum route (every live slot),
-    each against its plain version on a CPU copy and launched twice; then
-    grad_reduce's three routes: compact and segsum must agree to the bit,
-    scatter (index_add_) within SEGSUM_TOL. Returns (max abs err of K5,
-    the walk limits)."""
+    """K5 on `rows` (K2's or K4's) through the binning's work-slot map with
+    the walk test, as grad_reduce launches it, against its plain version on
+    a CPU copy and launched twice. Returns (max abs err of K5, the walk
+    limits)."""
     import torch
     from gaussmart_tpu_torch.render import raster_tiled as rt
     from gaussmart_tpu_torch.render import segsum
@@ -727,30 +709,14 @@ def hold_reduction(label, rows, binned, ints):
     walked = int((limits - b.tile_ranges[:, 0]).sum())
     print(f"[compare] {label} segsum: {int(b.slot_starts[-1])} live (splat, tile) slots, "
           f"{walked} of them below their tile's walk limit")
-    err = 0.0
-    for route, walk in (("compact", (b.slot_tile, limits)), ("segsum", (None, None))):
-        args = (rows, b.inv_slots, b.slot_starts, n_rows) + walk
-        out = segsum.segment_sum_gathered(*args).cpu()
-        ref = segsum.segment_sum_gathered_plain(
-            *(x.cpu() if isinstance(x, torch.Tensor) else x for x in args))
-        err = max(err, hold(f"{label} segsum, {route} route, vs its plain version on a "
-                            "CPU copy", out, ref, SEGSUM_TOL, per_column=True))
-        print(f"[compare] {label} segsum, {route} route: bit-equal to the plain version "
-              f"{torch.equal(out, ref)}")
-        bit_equal(f"{label} segsum, {route} route", (out,),
-                  segsum.segment_sum_gathered(*args).cpu())
-    grads = {}
-    for mode in rt.GRAD_REDUCE_MODES:
-        with grad_reduce_route(mode):
-            grads[mode] = rt.grad_reduce(rows, b.entry_ids, n_rows, b, ints)
-    same = torch.equal(grads["compact"], grads["segsum"])
-    print(f"[compare] {label} grad_reduce: compact and segsum routes bit-equal {same}")
-    if not same:
-        fail(f"[compare] {label}: the compact and segsum routes differ")
-    hold(f"{label} grad_reduce scatter (index_add_) vs compact", grads["scatter"],
-         grads["compact"], SEGSUM_TOL, per_column=True)
-    print(f"[compare] {label} grad_reduce: scatter bit-equal to compact "
-          f"{torch.equal(grads['scatter'], grads['compact'])}")
+    args = (rows, b.inv_slots, b.slot_starts, n_rows, b.slot_tile, limits)
+    out = segsum.segment_sum_gathered(*args).cpu()
+    ref = segsum.segment_sum_gathered_plain(
+        *(x.cpu() if isinstance(x, torch.Tensor) else x for x in args))
+    err = hold(f"{label} segsum vs its plain version on a CPU copy", out, ref, SEGSUM_TOL,
+               per_column=True)
+    print(f"[compare] {label} segsum: bit-equal to the plain version {torch.equal(out, ref)}")
+    bit_equal(f"{label} segsum", (out,), segsum.segment_sum_gathered(*args).cpu())
     return err, limits
 
 
@@ -956,8 +922,7 @@ def backward_determinism(state, cams, gts, device):
     Gaussian-sharded make_mp_train_step and the data-parallel
     make_dp_train_step over N_SLOTS slots) from the same state, cameras and
     targets: the gradients of every parameter and of means2d must be
-    bit-equal on the default route. Under GMT_GRAD_REDUCE=scatter
-    (index_add_'s atomics) whether they are is printed, not held."""
+    bit-equal."""
     import torch
     from gaussmart_tpu_torch.config import OptimizationParams
     from gaussmart_tpu_torch.optim import init_adam
@@ -988,26 +953,20 @@ def backward_determinism(state, cams, gts, device):
 
 def hold_determinism(steps):
     """{label: (step, args)}: two backwards of each step from the same
-    arguments, their gradients held bit-equal on the default route and
-    compared, printed only, under scatter."""
+    arguments, their gradients held bit-equal."""
     import torch
     for label, (step, args) in steps.items():
-        for mode in ("compact", "scatter"):
-            with grad_reduce_route(mode):
-                first, second = step_gradients(step, args), step_gradients(step, args)
-            differ = [k for k in first if not (
-                first[k] is second[k] is None
-                or (first[k] is not None and second[k] is not None
-                    and torch.equal(first[k], second[k])))]
-            print(f"[determinism] {label}, GMT_GRAD_REDUCE={mode}: two backwards from the "
-                  f"same state, {len(first)} gradients (every parameter group and "
-                  f"means2d, per view and chunk) bit-equal {not differ}"
-                  + (f"; differing: {', '.join(differ)}" if differ else "")
-                  + ("" if mode == "compact" else " (index_add_'s float atomics: not "
-                     "held)"))
-            if mode == "compact" and differ:
-                fail(f"[determinism] {label}: the default route's gradients differ "
-                     "between two backwards")
+        first, second = step_gradients(step, args), step_gradients(step, args)
+        differ = [k for k in first if not (
+            first[k] is second[k] is None
+            or (first[k] is not None and second[k] is not None
+                and torch.equal(first[k], second[k])))]
+        print(f"[determinism] {label}: two backwards from the same state, {len(first)} "
+              f"gradients (every parameter group and means2d, per view and chunk) "
+              f"bit-equal {not differ}"
+              + (f"; differing: {', '.join(differ)}" if differ else ""))
+        if differ:
+            fail(f"[determinism] {label}: the gradients differ between two backwards")
 
 
 # --- the main paths ----------------------------------------------------------
@@ -1338,23 +1297,18 @@ def fused_preprocess_path(state_s, cams, seed, device, card):
 
 @contextlib.contextmanager
 def synced_launches():
-    """Every hand-written kernel entry loaded in the block synchronises the
+    """Every hand-written kernel launched in the block synchronises the
     card after its launch, so that a fault surfaces at the launch that made
-    it (the wrappers raise the entry's own error code)."""
+    it (kernels.launch raises the entry's own error code)."""
     import torch
     from gaussmart_tpu_torch import kernels
 
-    def make(load):
-        def synced_load(*a, **kw):
-            entry = load(*a, **kw)
-
-            def call(*args):
-                err = entry(*args)
-                torch.cuda.synchronize()
-                return err
-            return call
-        return synced_load
-    with replaced(kernels, "load", make):
+    def make(launch):
+        def synced_launch(*args):
+            launch(*args)
+            torch.cuda.synchronize()
+        return synced_launch
+    with replaced(kernels, "launch", make):
         yield
 
 
@@ -1607,7 +1561,7 @@ def csv_iterations(path):
 
 
 def train_path(root, seed, n, width, height, device):
-    """The training slice's main path: train, resume, the segsum route."""
+    """The training slice's main path: train, then resume."""
     src, out = os.path.join(root, "train_scene"), os.path.join(root, "trained")
     t0 = time.perf_counter()
     write_train_scene(src, seed, n, width, height)
@@ -1656,19 +1610,6 @@ def train_path(root, seed, n, width, height, device):
             and os.path.exists(os.path.join(out, "point_cloud", f"iteration_{end}",
                                             "point_cloud.ply"))):
         fail("[train] resume check failed")
-
-    seg_losses = []
-    with grad_reduce_route("segsum"):
-        _, _, scounts, secs = train_cli(
-            src, os.path.join(root, "trained_segsum"), SEGSUM_ITERS, device,
-            seg_losses, ["--test_iterations", "0"])
-    same = seg_losses == losses[:SEGSUM_ITERS]
-    print(f"[train] GMT_GRAD_REDUCE=segsum, {SEGSUM_ITERS} iterations in {secs:.2f} s: "
-          f"launches {scounts}; losses {seg_losses}; the same iterations' losses "
-          f"under compact {losses[:SEGSUM_ITERS]}: equal {same}")
-    if not (only(scounts, raster_fwd=SEGSUM_ITERS, raster_bwd=SEGSUM_ITERS,
-                 segsum=SEGSUM_ITERS) and np.all(np.isfinite(seg_losses)) and same):
-        fail("[train] segsum route check failed")
     return counts, losses
 
 
@@ -3716,13 +3657,12 @@ def kernel_bounds(io, width, height):
     # K2 reads A, T, M1, M2, n_contrib, med_e and the CT cotangent planes
     k2 = (OPS_PER_EVAL * k2_evals + (OPS_PER_BWD_STEP + rt.F) * blends,
           inputs + (4 + 2 + rt.CT) * plane + rows_bytes)
-    # K5 on the default compact route: reduction_bytes, one add per
-    # element of each walked row
+    # K5 as grad_reduce launches it: reduction_bytes, one add per element
+    # of each walked row
     nbytes, walked, live = reduction_bytes(io)
-    k5 = (walked * rt.F, nbytes["compact"])
-    print(f"[bound] frame: segsum reads {walked} walked rows of {live} live slots on the "
-          f"compact route ({nbytes['compact']} bytes; every live row on the segsum "
-          f"route: {nbytes['segsum']} bytes)")
+    k5 = (walked * rt.F, nbytes)
+    print(f"[bound] frame: segsum reads {walked} walked rows of {live} live slots "
+          f"({nbytes} bytes)")
     print(f"[bound] frame: (entry, pixel) evaluations {k2_evals} below n_contrib in "
           f"raster_bwd, {blends} of them blended; raster_bwd's warps evaluate "
           f"{warp_walk_evals(ranges, ints, width, height)}")
@@ -3885,11 +3825,9 @@ def time_training(state, cams, gts, card, mesh=None, dino_fn=None, first_iter=1)
           + ", ".join(f"{s} {ms:.4f} ms" for s, ms in zip(stages, parts)))
     kernel_ms, top = device_kernel_ms(one, 5)
     print_device(what, kernel_ms, top, step_ms)
-    # the compositor's kernels (K1/K2, or K3/K4 over slots), K5 (the
-    # default GMT_GRAD_REDUCE=compact reduction), and index_add_'s scatter
-    # (the reduction before K5 took the default route: 0 now)
+    # the compositor's kernels (K1/K2, or K3/K4 over slots) and K5
     for part, key in (("render", "raster_fwd_kernel"), ("backward", "raster_bwd_kernel"),
-                      ("backward", "segsum_kernel"), ("backward", "indexFuncLargeIndex")):
+                      ("backward", "segsum_kernel")):
         ms = sum(t for name, t, _ in top if key in name)
         print(f"[time] {what}: {part} {parts[stages.index(part)]:.4f} ms, of which "
               f"{key} {ms:.4f} ms device time (torch.profiler)")
@@ -3917,11 +3855,11 @@ def time_kernels(io, width, height):
             "raster_bwd": (time_ms(lambda: rt.composite_tiles_bwd(*bargs), FRAMES),
                            time_ms(lambda: rt.composite_tiles_bwd_plain(*bargs),
                                    PLAIN_FRAMES, warmup=1), None),
-            # the default compact route's K5; its plain version on the card
+            # K5 as grad_reduce launches it; its plain version on the card
             # (a loop over slot positions), torch.segment_reduce on the
             # rows already in slot order
-            "segsum": (time_ms(lambda: segsum.segment_sum_gathered(*k5["compact"]), FRAMES),
-                       time_ms(lambda: segsum.segment_sum_gathered_plain(*k5["compact"]),
+            "segsum": (time_ms(lambda: segsum.segment_sum_gathered(*k5["k5"]), FRAMES),
+                       time_ms(lambda: segsum.segment_sum_gathered_plain(*k5["k5"]),
                                PLAIN_FRAMES, warmup=1),
                        time_ms(lambda: torch.segment_reduce(
                            k5["rows_in_slots"], "sum", lengths=k5["lengths"], axis=0),
@@ -3931,24 +3869,23 @@ def time_kernels(io, width, height):
 
 
 def reduction_inputs(io):
-    """K5's arguments on a frame's rows for each route, and the rows in
-    slot order with each splat's slot count (torch.segment_reduce's)."""
+    """K5's arguments on a frame's rows as grad_reduce passes them, and the
+    rows in slot order with each splat's slot count
+    (torch.segment_reduce's)."""
     import torch
     b, rows = io["binned"], io["rows"]
     n_rows = b.slot_starts.shape[0]
     live = int(b.slot_starts[-1])
-    return {"compact": (rows, b.inv_slots, b.slot_starts, n_rows, b.slot_tile, io["limits"]),
-            "segsum": (rows, b.inv_slots, b.slot_starts, n_rows),
+    return {"k5": (rows, b.inv_slots, b.slot_starts, n_rows, b.slot_tile, io["limits"]),
             "rows_in_slots": rows[b.inv_slots[:live].to(torch.int64)].contiguous(),
             "lengths": (b.slot_starts[1:] - b.slot_starts[:-1]).to(torch.int64)}
 
 
 def reduction_bytes(io):
-    """{route: bytes} that K5 must move on the frame (each input read once,
-    each output written once): compact reads the walked rows (80 B each),
+    """(bytes, walked, live): what K5 must move on the frame (each input
+    read once, each output written once): the walked rows (80 B each),
     order and slot_tile of every live slot (8 B), slot_starts and the walk
-    limits; segsum every live row, its order and slot_starts; both write
-    one row per splat and the dummy row. Returns also (walked, live)."""
+    limits read, one row per splat and the dummy row written."""
     from gaussmart_tpu_torch.render import raster_tiled as rt
     b, limits = io["binned"], io["limits"]
     walked = int((limits - b.tile_ranges[:, 0]).sum())
@@ -3956,35 +3893,26 @@ def reduction_bytes(io):
     row = rt.F * 4
     table = b.slot_starts.numel() * 4
     out = b.slot_starts.numel() * row
-    return {"compact": walked * row + live * 8 + table + limits.numel() * 4 + out,
-            "segsum": live * row + live * 4 + table + out}, walked, live
+    return walked * row + live * 8 + table + limits.numel() * 4 + out, walked, live
 
 
 def time_reduction(io, card):
-    """The per-splat reduction on the training frame's rows: K5 on each
-    route, each grad_reduce route whole (compact: walk limits + K5;
-    segsum: K5; scatter: zeros + index_add_ + the dummy row's zero) and
-    torch.segment_reduce, each as the median of FRAMES calls by CUDA events
-    (host work included where the card waits for it) and as device time
-    per call by torch.profiler (K5's own kernel: kernel only), with each
-    route's byte bound."""
+    """The per-splat reduction on the training frame's rows: K5 alone,
+    grad_reduce whole (walk limits + K5) and torch.segment_reduce, each as
+    the median of FRAMES calls by CUDA events (host work included where the
+    card waits for it) and as device time per call by torch.profiler (K5's
+    own kernel: kernel only), with K5's byte bound."""
     import torch
     from gaussmart_tpu_torch.render import raster_tiled as rt
     from gaussmart_tpu_torch.render import segsum
     k5 = reduction_inputs(io)
     b, rows, ints = io["binned"], io["rows"], io["ints"]
     nbytes, walked, live = reduction_bytes(io)
-
-    def reduce(mode):
-        with grad_reduce_route(mode):
-            return rt.grad_reduce(rows, b.entry_ids, b.slot_starts.shape[0], b, ints)
-    calls = {f"K5, {route} route": (lambda r=route: segsum.segment_sum_gathered(*k5[r]))
-             for route in ("compact", "segsum")}
-    calls.update({f"grad_reduce {mode}": (lambda m=mode: reduce(m))
-                  for mode in rt.GRAD_REDUCE_MODES})
-    calls["torch.segment_reduce on the rows already in slot order"] = (
-        lambda: torch.segment_reduce(k5["rows_in_slots"], "sum", lengths=k5["lengths"],
-                                     axis=0))
+    calls = {"K5": lambda: segsum.segment_sum_gathered(*k5["k5"]),
+             "grad_reduce": lambda: rt.grad_reduce(rows, b, ints),
+             "torch.segment_reduce on the rows already in slot order":
+                 lambda: torch.segment_reduce(k5["rows_in_slots"], "sum",
+                                              lengths=k5["lengths"], axis=0)}
     parts = []
     with torch.inference_mode():
         for label, fn in calls.items():
@@ -4000,11 +3928,9 @@ def time_reduction(io, card):
           f"({live} live slots, {walked} below their tile's walk limit), median of "
           f"{FRAMES} by CUDA events and device time per call by torch.profiler: "
           + "; ".join(parts)
-          + f"; bounds: compact route {bound(walked * rt.F, nbytes['compact'])[0]:.4f} ms "
-          f"({nbytes['compact']} bytes: the walked rows, 8 bytes of slot map per live "
-          f"slot, slot_starts, the walk limits, the output), segsum route "
-          f"{bound(live * rt.F, nbytes['segsum'])[0]:.4f} ms ({nbytes['segsum']} bytes: "
-          f"every live row, 4 bytes of slot map per live slot, slot_starts, the output)")
+          + f"; K5's bound {bound(walked * rt.F, nbytes)[0]:.4f} ms ({nbytes} bytes: the "
+          f"walked rows, 8 bytes of slot map per live slot, slot_starts, the walk "
+          f"limits, the output)")
 
 
 def time_seeded_kernels(io, width, height):

@@ -1,13 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each source ``csrc/<name>.cu`` exports plain C entry points (``<name>``,
-and for raster_fwd / raster_bwd also ``<name>_seeded``) that launch a
-kernel on the stream they are given and return ``cudaGetLastError()``.
-Sources are compiled with nvcc for Hopper (sm_90a) into a shared library
-under ``build/gaussmart_tpu_torch/`` at first use and loaded with ctypes;
-the library name carries a hash of the source and flags, so an edited
-source is rebuilt. Nothing is built or loaded at import time, and nothing
-here runs for CPU tensors.
+Each source ``csrc/<name>.cu`` exports plain C entry points (SIGNATURES)
+that launch a kernel on the stream they are given, their last argument,
+and return ``cudaGetLastError()``. ``launch`` is the one way in: it
+compiles the entry's source with nvcc for Hopper (sm_90a) into a shared
+library under ``build/gaussmart_tpu_torch/`` at first use, loads it with
+ctypes and calls the entry on a device's current stream; the library name
+carries a hash of the source and flags, so an edited source is rebuilt.
+Nothing is built or loaded at import time, and nothing here runs for CPU
+tensors.
 
 The host libraries (the marching-tetrahedra core, the image codec
 ``csrc/imagecodec.cpp``) are built by g++ through ``build_cxx`` into the
@@ -36,7 +37,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # host C++ libraries (ctypes, no Python headers)
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# entry point -> (its source csrc/<source>.cu, the parameter types of its C
+# prototype in order: pointers (None is NULL), int, long long, float; the
+# stream last). tests/test_torch_launch.py holds each to its prototype.
+SIGNATURES = {
+    "raster_fwd": ("raster_fwd", (_P,) * 4 + (_I,) * 2 + (_P,) * 3),
+    "raster_fwd_seeded": ("raster_fwd", (_P,) * 5 + (_I,) * 2 + (_P,) * 3),
+    "raster_bwd": ("raster_bwd", (_P,) * 6 + (_I,) * 4 + (_P,) * 2),
+    "raster_bwd_seeded": ("raster_bwd", (_P,) * 7 + (_I,) * 4 + (_P,) * 3),
+    "segsum": ("segsum", (_P,) * 5 + (_I,) * 2 + (_P,) * 2),
+    "preprocess_fwd": ("preprocess", (_I,) + (_P,) * 8 + (_I,) * 2 + (_P,) + (_I,) * 2
+                       + (_P,) + (_I,) * 4 + (_F,) + (_P,) * 5),
+    "bin_count": ("binning", (_P, _I) + (_P,) * 4 + (_I,) * 3 + (_P,) * 4),
+    "bin_emit": ("binning", (_P, _I) + (_P,) * 4 + (_I,) * 3 + (_P,) * 6),
+    "bin_finish": ("binning", (_P,) * 4 + (_L,) * 2 + (_I,) * 2 + (_P,) * 5),
+}
+
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def library_path(name: str) -> Path:
@@ -66,18 +85,37 @@ def build(name: str) -> str:
     return proc.stdout
 
 
-def load(name: str, entry: str, argtypes) -> ctypes._CFuncPtr:
-    """The C entry point `entry` of csrc/<name>.cu, building the library
-    first if needed. Every pointer and the stream are ``c_void_p`` in
-    ``argtypes``."""
-    lib = _libs.get(name)
-    if lib is None:
-        build(name)
-        lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+def bind(lib: ctypes.CDLL, entry: str) -> ctypes._CFuncPtr:
+    """`lib`'s C entry point `entry` with its SIGNATURES argument types and
+    an int result."""
     fn = getattr(lib, entry)
-    fn.argtypes = list(argtypes)
+    fn.argtypes = list(SIGNATURES[entry][1])
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point `entry` (SIGNATURES) with `args` and the
+    current stream of the CUDA `device`, inside its device guard; raise
+    RuntimeError if it returns a CUDA error. Its library is built and
+    loaded at the first launch; other devices raise before anything is.
+    torch is imported here, not with the module, which io/jpeg.py and
+    io/images.py import without torch."""
+    import torch
+    if device.type != "cuda":
+        raise ValueError(f"{entry} launches on a CUDA device, not {device}")
+    fn = _entries.get(entry)
+    if fn is None:
+        source = SIGNATURES[entry][0]
+        lib = _libs.get(source)
+        if lib is None:
+            build(source)
+            lib = _libs[source] = ctypes.CDLL(str(library_path(source)))
+        fn = _entries[entry] = bind(lib, entry)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
 
 
 def _run_cxx(cmd, src: Path):

@@ -15,7 +15,6 @@ raster_tiled.build_blob and build_conics), which every other render runs.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -29,9 +28,6 @@ from gaussmart_tpu_torch.render.raster_common import Preprocessed
 from gaussmart_tpu_torch.render.raster_tiled import F, FC, build_blob, build_conics
 
 MAX_SH_DEGREE = 4
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float]
-             + [ctypes.c_void_p] * 5)
 
 
 class Fused(NamedTuple):
@@ -92,17 +88,13 @@ def preprocess_fused(state: GaussianState, cam: CameraParams,
     conics = torch.empty((n + 1, FC), dtype=torch.float32, device=dev)
     aux = torch.empty((4, n), dtype=torch.float32, device=dev)
     valid = torch.empty(n, dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        err = kernels.load("preprocess", "preprocess_fwd", _ARGTYPES)(
-            deg, p.xyz.data_ptr(), p.scaling.data_ptr(), p.rotation.data_ptr(),
-            p.opacity.data_ptr(), p.features_dc.data_ptr(), p.features_rest.data_ptr(),
-            state.aux.active.data_ptr(), wv.data_ptr(), wv.stride(0), wv.stride(1),
-            fp.data_ptr(), fp.stride(0), fp.stride(1), cam.camera_center.data_ptr(), n,
-            n_rest, cam.width, cam.height, scale_modifier, blob.data_ptr(),
-            conics.data_ptr(), aux.data_ptr(), valid.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"preprocess_fwd launch failed with CUDA error {err}")
+    kernels.launch("preprocess_fwd", dev, deg, p.xyz.data_ptr(), p.scaling.data_ptr(),
+                   p.rotation.data_ptr(), p.opacity.data_ptr(), p.features_dc.data_ptr(),
+                   p.features_rest.data_ptr(), state.aux.active.data_ptr(), wv.data_ptr(),
+                   wv.stride(0), wv.stride(1), fp.data_ptr(), fp.stride(0), fp.stride(1),
+                   cam.camera_center.data_ptr(), n, n_rest, cam.width, cam.height,
+                   scale_modifier, blob.data_ptr(), conics.data_ptr(), aux.data_ptr(),
+                   valid.data_ptr())
     count("preprocess_fwd", 1)
     rows = blob[:n]
     radius, depth, rx, ry = aux.unbind(0)

@@ -38,17 +38,13 @@ The backward (RasterCore, a torch.autograd.Function like the JAX custom
 VJP _raster_core) runs K2, composite_tiles_bwd: the reverse walk writes
 one gradient row of the 20 blob fields per (splat, tile) entry, and
 grad_reduce sums the rows per splat through the binning's work-slot map
-with K5 (render/segsum.py), in a fixed order (GMT_GRAD_REDUCE selects the
-route; only "scatter", index_add_, is not deterministic on the card).
-RasterCoreSeeded
-(the JAX _raster_core_seeded) runs K3 forward and K4 backward: K2 plus
+with K5 (render/segsum.py), in a fixed order. RasterCoreSeeded (the JAX
+_raster_core_seeded) runs K3 forward and K4 backward: K2 plus
 cotangents on the raw M1/M2 outputs, the seeded distortion terms and the
 seed's own gradient.
 """
 from __future__ import annotations
 
-import ctypes
-import os
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -71,19 +67,6 @@ CT = 11             # channels with cotangents: C0..2 D A N0..2 med dist T
 CT_SEEDED = 13      # the seeded core's: also M1 and M2 (they feed the fold)
 FARNEAR = (FAR_PLANE * NEAR_PLANE) / (FAR_PLANE - NEAR_PLANE)  # d(mapped)/d(depth) * depth^2
 MAPPED_SCALE = FAR_PLANE / (FAR_PLANE - NEAR_PLANE)             # mapped_depth's factor
-GRAD_REDUCE_MODES = ("compact", "scatter", "segsum")
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-_SEEDED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                 + [ctypes.c_void_p] * 2)
-_SEEDED_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                        + [ctypes.c_void_p] * 3)
-_SPLAT_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 3)
-_COUNT_ARGTYPES = _SPLAT_ARGTYPES + [ctypes.c_void_p] * 4
-_EMIT_ARGTYPES = _SPLAT_ARGTYPES + [ctypes.c_void_p] * 6
-_FINISH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-                    + [ctypes.c_void_p] * 5)
 
 
 def tile_grid(width: int, height: int) -> Tuple[int, int]:
@@ -348,45 +331,35 @@ def _binning_k7(prep: Preprocessed, tiles_x: int, tiles_y: int, conics: torch.Te
     counts = torch.empty(N, **i32)
     slot_starts = torch.empty(N + 1, **i32)
     totals = torch.empty(3, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = kernels.load("binning", "bin_count", _COUNT_ARGTYPES)(
-            *splats, counts.data_ptr(), slot_starts.data_ptr(), totals.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"bin_count launch failed with CUDA error {err}")
-        count("binning", 1)       # the binning went through K7
-        torch.cumsum(counts, 0, dtype=torch.int32, out=slot_starts[1:])
-        # the frame's one host sync: rect and live pair counts
-        with span("render.binning.sync"):
-            n_rect, n_live, _ = totals.tolist()
-        count("render.rect_pairs", n_rect)
-        if n_rect >= 2 ** 31:
-            raise ValueError(f"binning: {n_rect} rectangle pairs overflow the int32 entry "
-                             "buffers")
-        if n_rect == 0:
-            empty = _empty_plan(dev)
-            return Binned(empty, torch.zeros(n_tiles, 2, **i32), conics, empty, slot_starts,
-                          empty)
-        keys = torch.empty(n_live, dtype=torch.int64, device=dev)
-        pair_sid = torch.empty(n_live, **i32)
-        slot_tile = torch.empty(n_rect, **i32) if plan else _empty_plan(dev)
-        tile_ptr = slot_tile.data_ptr() if plan else None
-        if n_live:
-            err = kernels.load("binning", "bin_emit", _EMIT_ARGTYPES)(
-                *splats, depth.data_ptr(), slot_starts.data_ptr(), keys.data_ptr(),
-                pair_sid.data_ptr(), tile_ptr, stream)
-            if err != 0:
-                raise RuntimeError(f"bin_emit launch failed with CUDA error {err}")
-        keys, perm = torch.sort(keys, stable=True)
-        entry_ids = torch.empty(n_rect, **i32)
-        tile_ranges = torch.empty(n_tiles, 2, **i32)
-        inv_slots = torch.empty(n_rect, **i32) if plan else _empty_plan(dev)
-        err = kernels.load("binning", "bin_finish", _FINISH_ARGTYPES)(
-            keys.data_ptr(), perm.data_ptr(), pair_sid.data_ptr(), totals.data_ptr(), n_live,
-            n_rect, N, n_tiles, entry_ids.data_ptr(), tile_ranges.data_ptr(),
-            inv_slots.data_ptr() if plan else None, tile_ptr, stream)
-        if err != 0:
-            raise RuntimeError(f"bin_finish launch failed with CUDA error {err}")
+    kernels.launch("bin_count", dev, *splats, counts.data_ptr(), slot_starts.data_ptr(),
+                   totals.data_ptr())
+    count("binning", 1)       # the binning went through K7
+    torch.cumsum(counts, 0, dtype=torch.int32, out=slot_starts[1:])
+    # the frame's one host sync: rect and live pair counts
+    with span("render.binning.sync"):
+        n_rect, n_live, _ = totals.tolist()
+    count("render.rect_pairs", n_rect)
+    if n_rect >= 2 ** 31:
+        raise ValueError(f"binning: {n_rect} rectangle pairs overflow the int32 entry "
+                         "buffers")
+    if n_rect == 0:
+        empty = _empty_plan(dev)
+        return Binned(empty, torch.zeros(n_tiles, 2, **i32), conics, empty, slot_starts,
+                      empty)
+    keys = torch.empty(n_live, dtype=torch.int64, device=dev)
+    pair_sid = torch.empty(n_live, **i32)
+    slot_tile = torch.empty(n_rect, **i32) if plan else _empty_plan(dev)
+    tile_ptr = slot_tile.data_ptr() if plan else None
+    if n_live:
+        kernels.launch("bin_emit", dev, *splats, depth.data_ptr(), slot_starts.data_ptr(),
+                       keys.data_ptr(), pair_sid.data_ptr(), tile_ptr)
+    keys, perm = torch.sort(keys, stable=True)
+    entry_ids = torch.empty(n_rect, **i32)
+    tile_ranges = torch.empty(n_tiles, 2, **i32)
+    inv_slots = torch.empty(n_rect, **i32) if plan else _empty_plan(dev)
+    kernels.launch("bin_finish", dev, keys.data_ptr(), perm.data_ptr(), pair_sid.data_ptr(),
+                   totals.data_ptr(), n_live, n_rect, N, n_tiles, entry_ids.data_ptr(),
+                   tile_ranges.data_ptr(), inv_slots.data_ptr() if plan else None, tile_ptr)
     if is_tracing():
         count("render.live_pairs", slot_starts[N])
     return Binned(entry_ids, tile_ranges, conics, inv_slots, slot_starts, slot_tile)
@@ -549,20 +522,12 @@ def composite_tiles(blob: torch.Tensor, conics: torch.Tensor, entry_ids: torch.T
                          "raster_fwd stages their rows with 16-byte copies")
     fb = torch.empty((CH, h_pad, w_pad), dtype=torch.float32, device=blob.device)
     ints = torch.empty((2, h_pad, w_pad), dtype=torch.int32, device=blob.device)
-    with torch.cuda.device(blob.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        head = (blob.data_ptr(), conics.data_ptr(), entry_ids.data_ptr(),
-                tile_ranges.data_ptr())
-        if init is None:
-            err = kernels.load("raster_fwd", "raster_fwd", _ARGTYPES)(
-                *head, tiles_x, tiles_y, fb.data_ptr(), ints.data_ptr(), stream)
-        else:
-            err = kernels.load("raster_fwd", "raster_fwd_seeded", _SEEDED_ARGTYPES)(
-                *head, init.data_ptr(), tiles_x, tiles_y, fb.data_ptr(), ints.data_ptr(),
-                stream)
-    if err != 0:
-        raise RuntimeError(f"raster_fwd launch failed with CUDA error {err}")
-    count("raster_fwd" if init is None else "raster_fwd_seeded", 1)
+    entry = "raster_fwd" if init is None else "raster_fwd_seeded"
+    kernels.launch(entry, blob.device, blob.data_ptr(), conics.data_ptr(),
+                   entry_ids.data_ptr(), tile_ranges.data_ptr(),
+                   *(() if init is None else (init.data_ptr(),)), tiles_x, tiles_y,
+                   fb.data_ptr(), ints.data_ptr())
+    count(entry, 1)
     return fb, ints
 
 
@@ -792,37 +757,19 @@ def composite_tiles_bwd(blob: torch.Tensor, entry_ids: torch.Tensor,
         raise ValueError("blob must start on a 16-byte boundary: raster_bwd stages "
                          "its rows with 16-byte copies")
     rows = torch.zeros((entry_ids.shape[0], F), dtype=torch.float32, device=blob.device)
-    gi = None
-    with torch.cuda.device(blob.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if init is None:
-            err = kernels.load("raster_bwd", "raster_bwd", _BWD_ARGTYPES)(
-                blob.data_ptr(), entry_ids.data_ptr(), tile_ranges.data_ptr(),
-                fb.data_ptr(), ints.data_ptr(), ct.data_ptr(), tiles_x, tiles_y,
-                int(need_dist), int(need_med), rows.data_ptr(), stream)
-        else:
-            gi = torch.empty((3, h_pad, w_pad), dtype=torch.float32, device=blob.device)
-            err = kernels.load("raster_bwd", "raster_bwd_seeded", _SEEDED_BWD_ARGTYPES)(
-                blob.data_ptr(), entry_ids.data_ptr(), tile_ranges.data_ptr(),
-                fb.data_ptr(), ints.data_ptr(), ct.data_ptr(), init.data_ptr(),
-                tiles_x, tiles_y, int(need_dist), int(need_med), rows.data_ptr(),
-                gi.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"raster_bwd launch failed with CUDA error {err}")
-    count("raster_bwd" if init is None else "raster_bwd_seeded", 1)
-    return rows if init is None else (rows, gi)
-
-
-def grad_reduce_mode() -> str:
-    """GMT_GRAD_REDUCE, read on every call, picks grad_reduce's route:
-    "compact" (default) reads through K5 only the rows inside each tile's
-    walk window, "segsum" every live row through K5, "scatter" adds every
-    row with index_add_. Any other value raises."""
-    mode = os.environ.get("GMT_GRAD_REDUCE", "compact")
-    if mode not in GRAD_REDUCE_MODES:
-        raise ValueError(f"GMT_GRAD_REDUCE={mode!r}: expected one of "
-                         f"{', '.join(GRAD_REDUCE_MODES)}")
-    return mode
+    if init is None:
+        kernels.launch("raster_bwd", blob.device, blob.data_ptr(), entry_ids.data_ptr(),
+                       tile_ranges.data_ptr(), fb.data_ptr(), ints.data_ptr(), ct.data_ptr(),
+                       tiles_x, tiles_y, int(need_dist), int(need_med), rows.data_ptr())
+        count("raster_bwd", 1)
+        return rows
+    gi = torch.empty((3, h_pad, w_pad), dtype=torch.float32, device=blob.device)
+    kernels.launch("raster_bwd_seeded", blob.device, blob.data_ptr(), entry_ids.data_ptr(),
+                   tile_ranges.data_ptr(), fb.data_ptr(), ints.data_ptr(), ct.data_ptr(),
+                   init.data_ptr(), tiles_x, tiles_y, int(need_dist), int(need_med),
+                   rows.data_ptr(), gi.data_ptr())
+    count("raster_bwd_seeded", 1)
+    return rows, gi
 
 
 def walk_limits(ints: torch.Tensor, tile_ranges: torch.Tensor) -> torch.Tensor:
@@ -836,41 +783,18 @@ def walk_limits(ints: torch.Tensor, tile_ranges: torch.Tensor) -> torch.Tensor:
     return torch.minimum(tile_ranges[:, 0] + walked, tile_ranges[:, 1])
 
 
-def grad_reduce(rows: torch.Tensor, entry_ids: torch.Tensor, n_rows: int,
-                binned: Optional[Binned] = None, ints: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-    """Per-splat sums [n_rows, F] of the per-entry gradient rows, the last
-    (dummy) row zero (counterpart of the JAX _grad_reduce), by
-    GMT_GRAD_REDUCE's route:
-
-      compact  K5 through `binned`'s work-slot map (inv_slots,
-               slot_starts), reading only the rows below each tile's walk
-               limit (walk_limits of the forward's `ints`); a skipped row
-               is an exact zero and adds 0 in its place.
-      segsum   K5 through the same map over every live row.
-      scatter  index_add_ over every row: float atomics on the card, so
-               the one route whose sums are not deterministic there.
-
-    compact and segsum add each splat's rows in entry order and agree to
-    the bit. Without `binned` the map comes from a stable sort of
-    `entry_ids` and nothing is skipped."""
-    mode = grad_reduce_mode()
-    if mode == "scatter":
-        out = rows.new_zeros((n_rows, rows.shape[1]))
-        out.index_add_(0, entry_ids.to(torch.int64), rows)
-        out[n_rows - 1] = 0.0
-        return out
-    walk = (None, None)
-    if binned is None:
-        # the unused entries' id, the dummy row, sorts last, past the splats'
-        # segments
-        seg, perm = torch.sort(entry_ids, stable=True)
-        order, starts = perm.to(torch.int32), segsum.sorted_slot_starts(seg, n_rows - 1)
-    else:
-        order, starts = binned.inv_slots, binned.slot_starts
-        if mode == "compact":
-            walk = (binned.slot_tile, walk_limits(ints, binned.tile_ranges))
-    return segsum.segment_sum_gathered(rows, order, starts, n_rows, *walk)
+def grad_reduce(rows: torch.Tensor, binned: Binned, ints: torch.Tensor) -> torch.Tensor:
+    """Per-splat sums [N+1, F] of the per-entry gradient rows, the last
+    (dummy) row zero (counterpart of the JAX _grad_reduce's compact route):
+    K5 through `binned`'s work-slot map (inv_slots, slot_starts), reading
+    only the rows below each tile's walk limit (walk_limits of the
+    forward's `ints`); a skipped row is an exact zero and adds 0 in its
+    place. Each splat's rows are added in entry order, so the sums are
+    deterministic."""
+    starts = binned.slot_starts
+    return segsum.segment_sum_gathered(rows, binned.inv_slots, starts, starts.shape[0],
+                                       binned.slot_tile,
+                                       walk_limits(ints, binned.tile_ranges))
 
 
 class RasterCore(torch.autograd.Function):
@@ -901,7 +825,7 @@ class RasterCore(torch.autograd.Function):
             ct = g_fb[:CT].contiguous()
             rows = composite_tiles_bwd(blob, b.entry_ids, b.tile_ranges, fb, ints, ct,
                                        width, height, need_dist, need_med)
-            g_blob = grad_reduce(rows, b.entry_ids, blob.shape[0], b, ints)
+            g_blob = grad_reduce(rows, b, ints)
         return (g_blob,) + (None,) * 5
 
 
@@ -934,7 +858,7 @@ class RasterCoreSeeded(torch.autograd.Function):
         rows, gi = composite_tiles_bwd(blob, b.entry_ids, b.tile_ranges, fb, ints, ct,
                                        width, height, need_dist, need_med,
                                        init=init.contiguous())
-        return (grad_reduce(rows, b.entry_ids, blob.shape[0], b, ints), gi) + (None,) * 5
+        return (grad_reduce(rows, b, ints), gi) + (None,) * 5
 
 
 def rasterize_tiled(prep: Preprocessed, means2d: torch.Tensor, bg: torch.Tensor,

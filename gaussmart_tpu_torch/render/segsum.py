@@ -17,7 +17,6 @@ on the current stream or raise.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -26,7 +25,6 @@ from gaussmart_tpu_torch import kernels
 from gaussmart_tpu_torch.logging_utils import count
 
 F = 20
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
 
 
 def sorted_slot_starts(seg_ids: torch.Tensor, n_segments: int) -> torch.Tensor:
@@ -99,13 +97,8 @@ def segment_sum_gathered(rows: torch.Tensor, order: Optional[torch.Tensor],
 
     def ptr(x):
         return None if x is None else x.data_ptr()
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = kernels.load("segsum", "segsum", _ARGTYPES)(
-            rows.data_ptr(), ptr(order), slot_starts.data_ptr(), ptr(slot_tile),
-            ptr(tile_limit), n, n_out, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"segsum launch failed with CUDA error {err}")
+    kernels.launch("segsum", rows.device, rows.data_ptr(), ptr(order), slot_starts.data_ptr(),
+                   ptr(slot_tile), ptr(tile_limit), n, n_out, out.data_ptr())
     count("segsum", 1)
     return out
 

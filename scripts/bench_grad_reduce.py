@@ -17,14 +17,15 @@ entry ids, as that route gave them to it, kernel only and as its whole
 route (sort, row gather, kernel, the dummy row's zero). Each source is
 built with kernels.NVCC_FLAGS into its own library
 (bench_raster_bwd.build; their ptxas reports are printed) and called
-through ctypes as the wrapper calls it.
+through ctypes, with kernels.SIGNATURES' argument types, as the wrapper
+calls it.
 
 Rows (chip_smoke.py's frames): K2's on the full-width training frame
 (bench.py's state, camera 0, 776x584, need_dist/need_med (False, False),
 a fixed-seed cotangent) and K4's on its first depth stratum of 4 from the
 identity seed (pass 1 of the Gaussian-sharded step), each reduced through
-the frame's binning plan on the compact route (walked rows only) and the
-segsum route (every live row). Every build's sums are held against
+the frame's binning plan over the walked rows only, as grad_reduce
+reduces them. Every build's sums are held against
 segment_sum_gathered_plain on a CPU copy (within 1e-5 of each column's
 max; bit-equality printed). Then ROUNDS rounds, the sources in order and
 then reversed, each timing every case as the median of FRAMES launches
@@ -76,10 +77,7 @@ def frames(dev):
             rows = rows if init is None else rows[0]
             io = dict(rows=rows, binned=b, limits=rt.walk_limits(ints, b.tile_ranges))
             _, walked, live = cs.reduction_bytes(io)
-            k5 = cs.reduction_inputs(io)
-            for route in ("compact", "segsum"):
-                cases[f"{label}, {route} route ({walked} walked of {live} live)"] = \
-                    k5[route]
+            cases[f"{label} ({walked} walked of {live} live)"] = cs.reduction_inputs(io)["k5"]
             plain[label] = (rows, b.entry_ids, b.slot_starts.shape[0])
     return cases, plain
 
@@ -117,13 +115,12 @@ def launcher(lib, args):
     (rows, order, slot_starts, n_out[, slot_tile, tile_limit]), and its
     output."""
     import torch
+    from gaussmart_tpu_torch import kernels
     from gaussmart_tpu_torch.render import segsum
     rows, order, starts, n_out = args[:4]
     walk = args[4:] or (None, None)
     out = torch.empty((n_out, segsum.F), device=rows.device)
-    fn = lib.segsum
-    fn.argtypes = segsum._ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = kernels.bind(lib, "segsum")
     ptrs = [rows.data_ptr(), order.data_ptr(), starts.data_ptr(),
             *(None if x is None else x.data_ptr() for x in walk),
             starts.shape[0] - 1, n_out, out.data_ptr()]

@@ -10,7 +10,8 @@ adds another file with the same C entry points (for example the parent
 commit's, unpacked with `git archive`); each --variant adds the current
 source with its `constexpr int NAME = ...;` constants set to VALUE. Each
 is built with kernels.NVCC_FLAGS into its own library (their ptxas
-reports are printed) and called through ctypes as the wrapper calls it.
+reports are printed) and called through ctypes, with kernels.SIGNATURES'
+argument types, as the wrapper calls it.
 
 Frames (chip_smoke.py's): the full-width training frame (bench.py's state,
 camera 0, 776x584, SH bands above 0 masked) for K2 with need_dist/need_med
@@ -99,22 +100,20 @@ def launcher(lib, io, need):
     """A no-argument function launching `lib`'s kernel on `io`, and the
     outputs it writes (rows, seed gradient or None)."""
     import torch
+    from gaussmart_tpu_torch import kernels
     from gaussmart_tpu_torch.render import raster_tiled as rt
     tx, ty = io["tiles"]
     rows = torch.zeros((io["ids"].shape[0], rt.F), device=io["blob"].device)
     head = [io[k].data_ptr() for k in ("blob", "ids", "ranges", "fb", "ints", "ct")]
     if io["init"] is None:
-        fn = lib.raster_bwd
-        fn.argtypes = rt._BWD_ARGTYPES
+        fn = kernels.bind(lib, "raster_bwd")
         gi = None
         args = head + [tx, ty, int(need[0]), int(need[1]), rows.data_ptr()]
     else:
-        fn = lib.raster_bwd_seeded
-        fn.argtypes = rt._SEEDED_BWD_ARGTYPES
+        fn = kernels.bind(lib, "raster_bwd_seeded")
         gi = torch.empty_like(io["init"])
         args = head + [io["init"].data_ptr(), tx, ty, int(need[0]), int(need[1]),
                        rows.data_ptr(), gi.data_ptr()]
-    fn.restype = ctypes.c_int
 
     def run():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)

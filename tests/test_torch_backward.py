@@ -21,16 +21,27 @@ from gaussmart_tpu_torch.render import raster_tiled as rt
 from gaussmart_tpu_torch.render import segsum
 
 from test_raster import make_camera, make_scene
-from test_torch_kernels import _binned, _bwd, _bwd_case, _prep
+from test_torch_kernels import _binned, _bwd, _bwd_case, _index_add_sums, _prep
 
 torch.set_num_threads(1)
 
 
-def _autograd_rows_check(blob, ids, ranges, width, height, seed=1):
-    """grad_blob from the plain K2 + reduction against autograd through
-    composite_tiles_plain, for a random cotangent on the 11 channels that
-    carry one (zero on the padded pixels past the image edge)."""
-    tx, ty = rt.tile_grid(width, height)
+def _list_plan(ids, ranges, n_rows):
+    """The Binned of hand-made tile lists (every entry in a range): the
+    work-slot map binning writes, each splat's entries in entry order."""
+    seg, perm = torch.sort(ids, stable=True)
+    counts = (ranges[:, 1] - ranges[:, 0]).to(torch.int64)
+    tile = torch.repeat_interleave(torch.arange(ranges.shape[0]), counts)
+    return rt.Binned(ids, ranges, None, perm.to(torch.int32),
+                     segsum.sorted_slot_starts(seg, n_rows - 1), tile[perm].to(torch.int32))
+
+
+def _autograd_rows_check(blob, binned, width, height, seed=1):
+    """grad_blob from the plain K2 + reduction through `binned`'s plan
+    against autograd through composite_tiles_plain, for a random cotangent
+    on the 11 channels that carry one (zero on the padded pixels past the
+    image edge)."""
+    ids, ranges = binned.entry_ids, binned.tile_ranges
     blob = blob.detach().clone().requires_grad_(True)
     fb, ints = rt.composite_tiles_plain(blob, ids, ranges, width, height)
     ct = torch.zeros((rt.CT,) + fb.shape[1:])
@@ -45,7 +56,7 @@ def _autograd_rows_check(blob, ids, ranges, width, height, seed=1):
                                   width, height)
     assert counter("raster_bwd") == before          # CPU tensors never launch K2
     assert rows.shape == (ids.shape[0], rt.F)
-    got = rt.grad_reduce(rows, ids, blob.shape[0])
+    got = rt.grad_reduce(rows, binned, ints)
     # the same per-pixel chain rule in another association order: float32
     # noise relative to each column's scale (measured <= 2.5e-6)
     scale = ref.abs().amax(dim=0, keepdim=True) + 1e-30
@@ -56,8 +67,8 @@ def _autograd_rows_check(blob, ids, ranges, width, height, seed=1):
 @pytest.mark.parametrize("scene", ["small", "overlap", "ragged", "deep"])
 def test_plain_k2_matches_autograd_of_plain_forward(scene):
     prep, width, height = _prep(scene)
-    blob, ids, ranges = _binned(prep, width, height)
-    _autograd_rows_check(blob, ids, ranges, width, height)
+    blob, _, _ = _binned(prep, width, height)
+    _autograd_rows_check(blob, rt.binning(prep, *rt.tile_grid(width, height)), width, height)
 
 
 def test_empty_short_and_unwalked_tiles():
@@ -79,7 +90,8 @@ def test_empty_short_and_unwalked_tiles():
     ends = torch.cumsum(torch.tensor([len(x) for x in lists]), 0)
     ranges = torch.stack([ends - ends.new_tensor([len(x) for x in lists]), ends],
                          dim=1).to(torch.int32)
-    rows, fb, ints = _autograd_rows_check(blob, ids, ranges, width, height)
+    rows, fb, ints = _autograd_rows_check(blob, _list_plan(ids, ranges, blob.shape[0]),
+                                          width, height)
     tile_nc = ints[0].reshape(2, 16, 3, 16).permute(0, 2, 1, 3).reshape(6, 256)
     bound = torch.minimum(tile_nc.amax(dim=1), ranges[:, 1] - ranges[:, 0])
     assert bound[0] == 0 and bound[4] == 0 and bound[3] > 3
@@ -125,15 +137,13 @@ def _jax_gradients():
             [np.asarray(g) for g in g_tiled])
 
 
-@pytest.mark.parametrize("mode", rt.GRAD_REDUCE_MODES)
-def test_tiled_gradients_match_jax_tiled_and_dense(mode, monkeypatch):
+def test_tiled_gradients_match_jax_tiled_and_dense():
     """The port's tiled render differentiated through RasterCore (plain K2
-    on the CPU, then each GMT_GRAD_REDUCE route) against JAX
+    and K5 on the CPU) against JAX
     rasterize_tiled's custom VJP in interpret mode and JAX dense autodiff,
     with the loss and tolerances of
     tests/test_raster_pallas.py::test_gradients_match_dense (atol
     3e-3 * max|g|, rtol 2e-2: binning truncation against the dense oracle)."""
-    monkeypatch.setenv("GMT_GRAD_REDUCE", mode)
     (xyz, scales, quats, opac, shs), target = _grad_inputs()
     n = xyz.shape[0]
     cam = make_camera(width=32, height=32)
@@ -231,14 +241,11 @@ def test_plain_segsum_matches_jax(case):
     np.testing.assert_allclose(out.numpy(), ref, rtol=tol, atol=tol)
 
 
-def test_grad_reduce_modes_agree_and_unknown_mode_raises(monkeypatch):
-    """grad_blob under each GMT_GRAD_REDUCE route with binning's plan:
-    compact (K5's plain version over the rows inside each tile's walk
-    window) equals segsum (every live row) to the bit, and each route
-    equals its planless form (a stable sort of the ids); scatter (index_add_) agrees
-    within 1e-6 of the column scale (only the order of its sums may
-    differ). The dummy row is zero; the variable is read on every backward,
-    and anything else raises."""
+def test_grad_reduce_modes_agree_and_unknown_mode_raises():
+    """grad_blob through binning's plan (K5's plain version over the rows
+    inside each tile's walk window) against an index_add_ sum of the rows
+    by entry id: within 1e-6 of each column's scale (only the order of the
+    sums differs), the dummy row zero."""
     prep, width, height = _prep("ragged")
     blob, ids, ranges = _binned(prep, width, height)
     b = rt.binning(prep, *rt.tile_grid(width, height))
@@ -246,44 +253,32 @@ def test_grad_reduce_modes_agree_and_unknown_mode_raises(monkeypatch):
     ct = torch.tensor(np.random.default_rng(2).normal(
         size=(rt.CT,) + fb.shape[1:]).astype(np.float32))
     rows = rt.composite_tiles_bwd(blob, ids, ranges, fb, ints, ct, width, height)
-    out = {}
-    for mode in ("compact", "scatter", "segsum"):
-        monkeypatch.setenv("GMT_GRAD_REDUCE", mode)
-        out[mode] = rt.grad_reduce(rows, ids, blob.shape[0], b, ints)
-        assert torch.all(out[mode][-1] == 0)
-        assert torch.equal(out[mode], rt.grad_reduce(rows, ids, blob.shape[0]))
-    assert torch.equal(out["compact"], out["segsum"])
-    scale = out["compact"].abs().amax(dim=0) + 1e-30
-    assert ((out["scatter"] - out["compact"]).abs() / scale).max() <= 1e-6
-    monkeypatch.setenv("GMT_GRAD_REDUCE", "segsun")
-    with pytest.raises(ValueError, match="GMT_GRAD_REDUCE"):
-        rt.grad_reduce(rows, ids, blob.shape[0])
+    out = rt.grad_reduce(rows, b, ints)
+    assert out.shape == (blob.shape[0], rt.F) and torch.all(out[-1] == 0)
+    ref = _index_add_sums(rows, ids, blob.shape[0])
+    scale = out.abs().amax(dim=0) + 1e-30
+    assert ((ref - out).abs() / scale).max() <= 1e-6
 
 
 @pytest.mark.parametrize("scene", ["ragged", "deep"])
 @pytest.mark.parametrize("seeded", [False, True])
-def test_grad_reduce_routes_agree_with_the_plan(scene, seeded, monkeypatch):
+def test_grad_reduce_routes_agree_with_the_plan(scene, seeded):
     """On plain K2 / K4 rows (the deep scene's walk windows leave many rows
-    out): compact == segsum to the bit, and scatter within 1e-6 of each
-    column's scale, through binning's plan; the compact route's plain K5
-    reads only slots below the walk limit."""
+    out): grad_reduce through binning's plan within 1e-6 of each column's
+    scale of an index_add_ sum of the rows by entry id; its plain K5 reads
+    only slots below the walk limit."""
     case = _bwd_case(scene, seeded, "cpu")
     rows, _ = _bwd(case, (True, True), plain=True)
     b, n_rows = case["binned"], case["blob"].shape[0]
-    out = {}
-    for mode in rt.GRAD_REDUCE_MODES:
-        monkeypatch.setenv("GMT_GRAD_REDUCE", mode)
-        out[mode] = rt.grad_reduce(rows, b.entry_ids, n_rows, b, case["ints"])
-    assert torch.equal(out["compact"], out["segsum"])
-    scale = out["compact"].abs().amax(dim=0) + 1e-30
-    assert ((out["scatter"] - out["compact"]).abs() / scale).max() <= 1e-6
-    # the same sums with every row past a walk limit poisoned: compact
+    out = rt.grad_reduce(rows, b, case["ints"])
+    ref = _index_add_sums(rows, b.entry_ids, n_rows)
+    scale = out.abs().amax(dim=0) + 1e-30
+    assert ((ref - out).abs() / scale).max() <= 1e-6
+    # the same sums with every row past a walk limit poisoned: grad_reduce
     # never reads one
     limit = rt.walk_limits(case["ints"], b.tile_ranges)
     pos = torch.arange(rows.shape[0], dtype=torch.int32)
     tile = torch.searchsorted(b.tile_ranges[:, 1].contiguous(), pos, right=True)
     past = pos >= limit[tile.clamp(max=limit.shape[0] - 1)]
     poisoned = torch.where(past[:, None], torch.nan, rows)
-    monkeypatch.setenv("GMT_GRAD_REDUCE", "compact")
-    assert torch.equal(rt.grad_reduce(poisoned, b.entry_ids, n_rows, b, case["ints"]),
-                       out["compact"])
+    assert torch.equal(rt.grad_reduce(poisoned, b, case["ints"]), out)

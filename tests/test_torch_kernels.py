@@ -415,31 +415,25 @@ def test_segsum_gathered_kernel_matches_plain_on_card(walk, seed, max_len):
 @pytest.mark.cuda
 @pytest.mark.parametrize("scene", ["ragged", "wide", "deep"])
 @pytest.mark.parametrize("seeded", [False, True])
-def test_compact_and_segsum_agree_on_card(scene, seeded, monkeypatch):
-    """grad_reduce on K2 / K4's rows of a binned frame: the compact route
-    (walked rows only) equals the segsum route (every live row) to the bit,
-    each launches K5 once and two launches are bit-equal; both hold within
-    1e-5 of each column's max against the plain route on CPU copies, and
-    the scatter route (index_add_) against them."""
+def test_compact_and_segsum_agree_on_card(scene, seeded):
+    """grad_reduce on K2 / K4's rows of a binned frame (K5 over the walked
+    rows): one K5 launch a call, two calls bit-equal, within 1e-5 of each
+    column's max against its plain route on CPU copies and against an
+    index_add_ sum of the rows by entry id."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: segsum runs only on the card")
     case = _bwd_case(scene, seeded, "cuda")
     rows, _ = _bwd(case, (True, True))
     b = case["binned"]
-    n_rows = case["blob"].shape[0]
-    out = {}
-    for mode in ("compact", "segsum", "scatter"):
-        monkeypatch.setenv("GMT_GRAD_REDUCE", mode)
-        before = counter("segsum")
-        out[mode] = rt.grad_reduce(rows, b.entry_ids, n_rows, b, case["ints"])
-        assert counter("segsum") == before + (mode != "scatter")
-    monkeypatch.setenv("GMT_GRAD_REDUCE", "compact")
-    again = rt.grad_reduce(rows, b.entry_ids, n_rows, b, case["ints"])
-    assert torch.equal(out["compact"], out["segsum"]) and torch.equal(out["compact"], again)
+    before = counter("segsum")
+    out = rt.grad_reduce(rows, b, case["ints"])
+    assert counter("segsum") == before + 1
+    assert torch.equal(out, rt.grad_reduce(rows, b, case["ints"]))
     b_cpu = rt.Binned(*(x.cpu() for x in b))
-    ref = rt.grad_reduce(rows.cpu(), b_cpu.entry_ids, n_rows, b_cpu, case["ints"].cpu())
-    assert _column_err(out["compact"].cpu(), ref) <= 1e-5
-    assert _column_err(out["scatter"].cpu(), ref) <= 1e-5
+    ref = rt.grad_reduce(rows.cpu(), b_cpu, case["ints"].cpu())
+    assert _column_err(out.cpu(), ref) <= 1e-5
+    assert _column_err(out.cpu(), _index_add_sums(rows.cpu(), b_cpu.entry_ids,
+                                                  case["blob"].shape[0])) <= 1e-5
 
 
 def _seed_maps(width, height, device, seed=3):
@@ -581,6 +575,16 @@ def _bwd_case(scene, seeded, device):
     ct = (_seeded_cotangent if seeded else _random_cotangent)(fb)
     return dict(blob=blob, ids=b.entry_ids, ranges=b.tile_ranges, fb=fb, ints=ints, ct=ct,
                 width=width, height=height, init=init, binned=b)
+
+
+def _index_add_sums(rows, entry_ids, n_rows):
+    """The per-splat sums of `rows` by `entry_ids` through index_add_, the
+    last (dummy) row zero: grad_reduce's result in another order of
+    addition."""
+    out = rows.new_zeros((n_rows, rows.shape[1]))
+    out.index_add_(0, entry_ids.to(torch.int64), rows)
+    out[-1] = 0.0
+    return out
 
 
 def _bwd(case, need, plain=False):

@@ -165,7 +165,7 @@ def test_plain_k4_matches_autograd_of_plain_k3(scene, need):
     rows, gi = rt.composite_tiles_bwd(blob.detach(), ids, ranges, fb.detach(), ints, ct,
                                       W, H, need_dist, need_med, init=init.detach())
     assert counter("raster_bwd_seeded") == before
-    got = rt.grad_reduce(rows, ids, blob.shape[0])
+    got = rt.grad_reduce(rows, rt.binning(prep, tx, ty), ints)
     assert _column_scale_err(got, ref_blob) <= 2e-5
     # the seed gradient per pixel, against each channel's scale (pixels past
     # the image edge carry no cotangent). Where T0 = 0, K4 gives gT0 = 0 by
