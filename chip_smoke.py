@@ -164,6 +164,19 @@ Phases, each printing its own lines; any failure exits non-zero:
      binning_plain (the parent path), every output bit-equal; K7's device
      time beside its byte bound, the whole binning's (its torch.sort) and
      the plain chain's.
+ 15. the training step's preprocess (scripts/bench_preprocess_grad.py runs it
+     alone): K8 (csrc/preprocess_grad.cu) against the chain it replaces on
+     the phase-4 model's views (SH degrees 0-3 active, scaling_modifier 1
+     and 0.8) and on the GARDEN_SPLATS-splat state's: preprocess_grad_fwd's
+     blob, conic rows, radius, depth, rx, ry and valid bit-equal,
+     preprocess_bwd's gradients against autograd through the chain (each
+     leaf within K8_GRAD_TOL of its largest |gradient|, means2d's
+     bit-equal, the masked bands zero, two launches bit-equal); both
+     kernels' device time beside their byte bounds (the VJP on a training
+     step's cotangent and on every valid row), and the chain's forward and
+     autograd backward, device time and launches. The training runs above
+     count one preprocess_grad_fwd and one preprocess_bwd a single-device
+     or data-parallel step.
 N_SLOTS slots on one card measure the cost of the two-pass fold, not
 scaling across cards.
 Each path's kernel launch counts are set to 0 just before it runs and read
@@ -212,12 +225,19 @@ KERNELS = {"raster_fwd": ("raster_fwd", "gaussmart_tpu/render/raster_pallas.py:3
            "raster_bwd_seeded": ("raster_bwd", "gaussmart_tpu/render/raster_pallas.py:499"),
            # XLA fused this chain on the TPU: no Pallas kernel
            "preprocess_fwd": ("preprocess", "none (raster_common.preprocess, fused by XLA)"),
-           "binning": ("binning", "none (raster_pallas.py::_binning is XLA)")}
-SOURCES = ("raster_fwd", "raster_bwd", "segsum", "preprocess", "binning")
+           "binning": ("binning", "none (raster_pallas.py::_binning is XLA)"),
+           # the chain and its autodiff, fused by XLA on the TPU
+           "preprocess_grad_fwd": ("preprocess_grad",
+                                   "none (raster_common.preprocess, fused by XLA)"),
+           "preprocess_bwd": ("preprocess_grad",
+                              "none (the autodiff of raster_common.preprocess, by XLA)")}
+SOURCES = ("raster_fwd", "raster_bwd", "segsum", "preprocess", "binning", "preprocess_grad")
 # the template parameters of the kernels' variants, for the ptxas report
 TEMPLATE_PARAMS = {"raster_fwd_kernel": ("seeded",),
                    "raster_bwd_kernel": ("need_dist", "need_med", "seeded"),
-                   "segsum_kernel": ("order", "walk")}
+                   "segsum_kernel": ("order", "walk"),
+                   "preprocess_rows_kernel": ("deg", "shift"),
+                   "preprocess_bwd_kernel": ("deg",)}
 # the fused preprocess's garden-scale state (the m360-garden cell's splat
 # count, image size and SH degree). Phase 13 holds K6 bit-equal to its
 # plain twin at 100k and 3M splats: the plain chain's matrix products are
@@ -249,6 +269,9 @@ FLOAT_TOL = 1e-4          # K1 vs plain, every float channel
 INT_AGREE = 0.999         # K1 vs plain, n_contrib / med_e pixel share
 BWD_TOL = 1e-5            # K2 vs plain, per column, of the column's max |value|
 SEGSUM_TOL = 1e-5         # K5 vs plain, likewise
+# K8's VJP vs autograd through the chain, of each leaf's largest |gradient|:
+# the same sums in another order (tests/test_torch_preprocess_grad.py)
+K8_GRAD_TOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 3e-3, 2e-2   # tiled vs dense gradients (x max |g|)
 PNG_TOL = 1               # saved render vs in-memory render, 8-bit levels
 SHARDED_TOL = 5e-4        # Gaussian-sharded vs single-device renders (test_parallel.py)
@@ -446,8 +469,8 @@ def ptxas_report(log):
     report."""
     out = []
     for block in log.split("Compiling entry function")[1:]:
-        m = re.search(r"([a-z_]+_kernel)(?:I((?:Lb[01]E)+)E)?", block)
-        flags = re.findall(r"Lb([01])E", m.group(2) or "")
+        m = re.search(r"([a-z_]+_kernel)(?:I((?:L[a-z]+\d+E)+)E)?", block)
+        flags = re.findall(r"L[a-z]+(\d+)E", m.group(2) or "")
         names = TEMPLATE_PARAMS.get(m.group(1), ())
         kernel = m.group(1) + (
             "<" + ", ".join(f"{n}={f}" for n, f in zip(names, flags)) + ">" if flags else "")
@@ -1507,6 +1530,186 @@ def binning_path(state_s, cams, seed, device, card):
     return (k7_ms, plain_ms, None), (bound_ms, "bytes")
 
 
+# --- the training step's preprocess (K8) --------------------------------------
+
+GRAD_LEAVES = ("xyz", "scaling", "rotation", "opacity", "features_dc", "features_rest")
+
+
+def grad_bytes(state, active_degree):
+    """Bytes K8's forward and VJP must move at `active_degree`: each input
+    read once (the bands up to the degree), each output written once (the
+    VJP's gradient of every band, zeros above the degree)."""
+    n = state.capacity
+    n_rest = state.params.features_rest.shape[1]
+    params = n * 4 * (3 + 2 + 4 + 1 + 3 + 3 * ((active_degree + 1) ** 2 - 1))
+    fwd = params + n * (1 + 8) + (n + 1) * 4 * (20 + 8) + n * (4 * 4 + 1)
+    bwd = params + n + (n + 1) * 4 * 20 + n * 4 * (3 + 2 + 4 + 1 + 3 + 3 * n_rest + 2)
+    return fwd, bwd
+
+
+def valid_cotangent(valid, seed=1):
+    """A random blob cotangent on the valid splats' rows, zero elsewhere
+    (grad_reduce gives zero rows to splats that are not binned)."""
+    import torch
+    n = valid.shape[0]
+    g = torch.randn((n + 1, 20), device=valid.device,
+                    generator=torch.Generator(device=valid.device).manual_seed(seed))
+    return g * torch.cat([valid, valid.new_zeros(1)]).float()[:, None]
+
+
+def hold_grad(label, state, cam, active_degree, scale_modifier=1.0):
+    """K8 on one frame against the chain it replaces: the forward's blob,
+    conic rows, aux and valid bit-equal; the VJP of a random cotangent on
+    the valid rows against autograd through the chain, each leaf within
+    K8_GRAD_TOL of its largest |gradient|, means2d's bit-equal, the bands
+    above the degree zero, a second VJP bit-equal. Returns the largest gap
+    relative to its leaf's largest |gradient|."""
+    import torch
+    from gaussmart_tpu_torch.render import preprocess_grad as pg
+    p, sh = state.params, state.max_sh_degree
+    raw = [getattr(p, k).detach() for k in GRAD_LEAVES]
+    leaves = [x.clone().requires_grad_() for x in raw]
+    means2d = torch.zeros((state.capacity, 2), device=state.device, requires_grad=True)
+    args = (state.aux.active, cam, sh, active_degree, scale_modifier)
+    ref = pg.preprocess_grad_plain(*leaves, means2d, *args)
+    got = pg.preprocess_grad_fwd(*raw, means2d.detach(), *args)
+    torch.cuda.synchronize()
+    fwd_differ = [k for k, a, b in zip(("blob", "conics", "aux", "valid"), got, ref)
+                  if not torch.equal(a, b.detach())]
+    blob_ulps = int(ulps(got[0], ref[0].detach()).max())
+    valid = ref[3]
+    g = valid_cotangent(valid)
+    grads = torch.autograd.grad(ref[0], leaves + [means2d], g)
+    k8 = pg.preprocess_bwd(*raw, valid, g, *args[1:])
+    again = pg.preprocess_bwd(*raw, valid, g, *args[1:])
+    torch.cuda.synchronize()
+    gaps = {}
+    for name, a, b in zip(GRAD_LEAVES + ("means2d",), k8, grads):
+        scale = b.abs().max().item() if b.numel() else 0.0
+        gap = (a - b).abs().max().item() if b.numel() else 0.0
+        gaps[name] = gap / scale if scale else gap
+    masked = k8[5][:, (active_degree + 1) ** 2 - 1:]
+    deterministic = all(torch.equal(a, b) for a, b in zip(k8, again))
+    m2d_equal = torch.equal(k8[6], grads[6])
+    print(f"[grad] {label}, {state.capacity} splats ({int(valid.sum())} valid), SH "
+          f"{active_degree} of {sh}, scaling_modifier {scale_modifier}: forward outputs not "
+          f"bit-equal {fwd_differ} (blob's largest gap {blob_ulps} ulps); VJP gap / the "
+          "leaf's largest |gradient|: " + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+          + f"; means2d bit-equal {m2d_equal}; masked bands zero {not masked.any()}; two "
+          f"VJPs bit-equal {deterministic}")
+    if (fwd_differ or not m2d_equal or masked.any() or not deterministic
+            or max(gaps.values()) > K8_GRAD_TOL):
+        fail(f"[grad] {label}: K8 differs from the chain beyond its tolerance")
+    return max(gaps.values())
+
+
+def frame_cotangent(state, cam, gt, iteration=15001):
+    """The blob cotangent that K8's VJP takes in one training step on
+    `cam` (recorded from the step)."""
+    from gaussmart_tpu_torch.config import OptimizationParams
+    from gaussmart_tpu_torch.optim import init_adam
+    from gaussmart_tpu_torch.render import preprocess_grad as pg
+    from gaussmart_tpu_torch.train_lib import make_train_step
+    seen = []
+
+    def recording(orig):
+        def rec(*a):
+            seen.append(a[7].clone())
+            return orig(*a)
+        return rec
+    step = make_train_step(OptimizationParams(), sh_degree=state.max_sh_degree,
+                           white_background=False)
+    with replaced(pg, "preprocess_bwd", recording):
+        step(state.params, init_adam(state.params), state.aux, cam, gt, iteration)
+    if len(seen) != 1:
+        fail(f"[grad] the training step ran K8's VJP {len(seen)} times")
+    return seen[0]
+
+
+def time_grad(label, state, cam, gt, card):
+    """K8's forward and VJP device time at SH degree 3 beside their byte
+    bounds, the VJP on a training step's cotangent and on a random one on
+    every valid row; the chain's forward and its autograd backward, device
+    time and launches. Returns ((forward ms, VJP ms), (chain forward ms,
+    chain backward ms), (forward bound ms, VJP bound ms))."""
+    import torch
+    from gaussmart_tpu_torch.render import preprocess_grad as pg
+    p, sh = state.params, state.max_sh_degree
+    raw = [getattr(p, k).detach() for k in GRAD_LEAVES]
+    m2d = torch.zeros((state.capacity, 2), device=state.device)
+    args = (state.aux.active, cam, sh, sh)
+    g_frame = frame_cotangent(state, cam, gt)
+    fwd_ms, _ = device_kernel_ms(lambda: pg.preprocess_grad_fwd(*raw, m2d, *args), FRAMES)
+    valid = pg.preprocess_grad_fwd(*raw, m2d, *args)[3]
+    g = valid_cotangent(valid)
+    frame_rows = int(g_frame.ne(0).any(dim=1).sum())
+    bwd_ms, _ = device_kernel_ms(lambda: pg.preprocess_bwd(*raw, valid, g_frame, *args[1:]),
+                                 FRAMES)
+    dense_ms, _ = device_kernel_ms(lambda: pg.preprocess_bwd(*raw, valid, g, *args[1:]),
+                                   FRAMES)
+    leaves = [x.clone().requires_grad_() for x in raw]
+    m2d_leaf = m2d.clone().requires_grad_()
+    plain_fwd_ms, plain_fwd_top = device_kernel_ms(
+        lambda: pg.preprocess_grad_plain(*leaves, m2d_leaf, *args), 5)
+    out = pg.preprocess_grad_plain(*leaves, m2d_leaf, *args)
+    plain_bwd_ms, plain_bwd_top = device_kernel_ms(
+        lambda: torch.autograd.grad(out[0], leaves + [m2d_leaf], g_frame, retain_graph=True),
+        5)
+    del out
+    fwd_bytes, bwd_bytes = grad_bytes(state, sh)
+    fwd_bound, bwd_bound = (b / PEAK_BYTES_PER_S * 1e3 for b in (fwd_bytes, bwd_bytes))
+    if fwd_ms is None:
+        print(f"[time] {label}: device times not measured (the profiler recorded no "
+              "device events)")
+        return (None, None), (None, None), (fwd_bound, bwd_bound)
+
+    def launches(top):
+        return sum(c for _, _, c in top)
+    print(f"[time] {card}: {label}, {state.capacity} splats ({int(valid.sum())} valid, "
+          f"{frame_rows} rows of the training cotangent not zero), SH {sh}: "
+          f"preprocess_grad_fwd (K8) {fwd_ms:.4f} ms device, bound {fwd_bound:.4f} ms "
+          f"({fwd_bytes / 1e9:.3f} GB at 3.35 TB/s: {100 * fwd_bound / fwd_ms:.1f}% of it); "
+          f"preprocess_bwd (K8) {bwd_ms:.4f} ms device on the training cotangent, "
+          f"{dense_ms:.4f} ms on every valid row, bound {bwd_bound:.4f} ms "
+          f"({bwd_bytes / 1e9:.3f} GB: {100 * bwd_bound / bwd_ms:.1f}% of it); the chain's "
+          f"forward {plain_fwd_ms:.4f} ms device in {launches(plain_fwd_top):g} launches, "
+          f"its autograd backward {plain_bwd_ms:.4f} ms device in "
+          f"{launches(plain_bwd_top):g} launches")
+    return (fwd_ms, bwd_ms), (plain_fwd_ms, plain_bwd_ms), (fwd_bound, bwd_bound)
+
+
+def preprocess_grad_path(state_s, cams, seed, device, card):
+    """Phase 15: K8 against the chain on the phase-4 model's views (SH
+    degrees 0-3 active, scaling_modifier 1 and 0.8) and on a garden-scale
+    state's; timings at both sizes. Returns (the VJP's largest relative
+    gap, {entry: (ms, chain ms, None)}, {entry: (bound ms, "bytes")}) at
+    garden scale."""
+    import torch
+    views = [c.params(device) for c in cams]
+    err = 0.0
+    for i, cam in enumerate(views[:4]):
+        for active in range(SH_DEGREE + 1):
+            err = max(err, hold_grad(f"phase-4 model, view {i}", state_s, cam, active,
+                                     0.8 if i % 2 else 1.0))
+    gt = torch.rand(3, HEIGHT, WIDTH, device=device,
+                    generator=torch.Generator(device=device).manual_seed(seed))
+    time_grad(f"phase-4 model {WIDTH}x{HEIGHT}", state_s, views[0], gt, card)
+
+    garden = garden_scale_state(seed, device)
+    gcams = [c.params(device) for c in bench_cameras(2, GARDEN_WIDTH, GARDEN_HEIGHT)]
+    for i, cam in enumerate(gcams):
+        err = max(err, hold_grad(f"garden-scale state, view {i}", garden, cam, SH_DEGREE))
+    ggt = torch.rand(3, GARDEN_HEIGHT, GARDEN_WIDTH, device=device,
+                     generator=torch.Generator(device=device).manual_seed(seed))
+    ms, plain, bounds = time_grad(f"garden-scale state {GARDEN_WIDTH}x{GARDEN_HEIGHT}",
+                                  garden, gcams[0], ggt, card)
+    del garden
+    torch.cuda.empty_cache()
+    entries = ("preprocess_grad_fwd", "preprocess_bwd")
+    return (err, {k: (m, q, None) for k, m, q in zip(entries, ms, plain)},
+            {k: (b, "bytes") for k, b in zip(entries, bounds)})
+
+
 def counted_train(argv, after_step):
     """gaussmart_tpu_torch.train.main(argv), counted, with its step makers
     wrapped (one device or slots) so that after_step(args, outputs) sees
@@ -1586,7 +1789,8 @@ def train_path(root, seed, n, width, height, device):
           f"{int(state.n_active)} of capacity {state.capacity}; Adam steps "
           f"{int(adam.step)}; eval {ev}; missing outputs {missing}")
     if not (only(counts, raster_fwd=TRAIN_ITERS + EVAL_RENDERS, raster_bwd=TRAIN_ITERS,
-                 segsum=TRAIN_ITERS, preprocess_fwd=EVAL_RENDERS)
+                 segsum=TRAIN_ITERS, preprocess_fwd=EVAL_RENDERS,
+                 preprocess_grad_fwd=TRAIN_ITERS, preprocess_bwd=TRAIN_ITERS)
             and int(adam.step) == TRAIN_ITERS - densified
             and np.all(np.isfinite(losses)) and len(losses) == TRAIN_ITERS
             and last < first and not missing
@@ -1604,7 +1808,8 @@ def train_path(root, seed, n, width, height, device):
           f"{secs:.2f} s: launches {rcounts}; losses {resumed}; Adam steps "
           f"{int(adam.step)}; logged iterations {logged}")
     if not (only(rcounts, raster_fwd=RESUME_ITERS, raster_bwd=RESUME_ITERS,
-                 segsum=RESUME_ITERS)
+                 segsum=RESUME_ITERS, preprocess_grad_fwd=RESUME_ITERS,
+                 preprocess_bwd=RESUME_ITERS)
             and int(adam.step) == TRAIN_ITERS - densified + RESUME_ITERS
             and logged == [end] and np.all(np.isfinite(resumed))
             and os.path.exists(os.path.join(out, "point_cloud", f"iteration_{end}",
@@ -1673,7 +1878,8 @@ def train_slots_path(root, device, single_losses):
           f"iterations of {N_SLOTS} views in {secs:.2f} s: launches {dcounts}; losses "
           f"{dp_losses}; Adam steps {int(adam.step)}")
     if not (only(dcounts, raster_fwd=N_SLOTS * DP_ITERS, raster_bwd=N_SLOTS * DP_ITERS,
-                 segsum=N_SLOTS * DP_ITERS)
+                 segsum=N_SLOTS * DP_ITERS, preprocess_grad_fwd=N_SLOTS * DP_ITERS,
+                 preprocess_bwd=N_SLOTS * DP_ITERS)
             and int(adam.step) == DP_ITERS and len(dp_losses) == DP_ITERS
             and np.all(np.isfinite(dp_losses))):
         fail("[train] data-parallel check failed")
@@ -1824,7 +2030,8 @@ def dino_training(root, path, device):
           f"iterations in {secs:.2f} s: launches {counts}; dino term per step "
           f"{[round(d, 8) for d in dinos]}; dino_loss_log.csv {column}")
     gated, on = dinos[:DINO_GATE], dinos[DINO_GATE:]
-    if not (only(counts, raster_fwd=DINO_ITERS, raster_bwd=DINO_ITERS, segsum=DINO_ITERS)
+    if not (only(counts, raster_fwd=DINO_ITERS, raster_bwd=DINO_ITERS, segsum=DINO_ITERS,
+                 preprocess_grad_fwd=DINO_ITERS, preprocess_bwd=DINO_ITERS)
             and len(dinos) == DINO_ITERS and all(d == 0.0 for d in gated)
             and all(np.isfinite(d) and d > 0 for d in on) and np.all(np.isfinite(losses))
             and column.get(DINO_GATE) == 0.0 and column.get(DINO_ITERS, 0.0) > 0):
@@ -1837,7 +2044,9 @@ def dino_training(root, path, device):
                                    segsum=per_frame * DINO_SLOT_ITERS)),
                        ("dp", dict(raster_fwd=N_SLOTS * DINO_SLOT_ITERS,
                                    raster_bwd=N_SLOTS * DINO_SLOT_ITERS,
-                                   segsum=N_SLOTS * DINO_SLOT_ITERS))):
+                                   segsum=N_SLOTS * DINO_SLOT_ITERS,
+                                   preprocess_grad_fwd=N_SLOTS * DINO_SLOT_ITERS,
+                                   preprocess_bwd=N_SLOTS * DINO_SLOT_ITERS))):
         losses, dinos = [], []
         with dino_weights(path):
             _, _, counts, secs = train_cli(
@@ -1957,7 +2166,8 @@ def gui_training(root, device):
             and all(len(f[0]) == WIDTH * HEIGHT * 3 and len(set(f[0])) > 1
                     for f in client.frames)
             and only(counts, raster_fwd=GUI_ITERS + GUI_FRAMES, raster_bwd=GUI_ITERS,
-                     segsum=GUI_ITERS, preprocess_fwd=GUI_FRAMES)
+                     segsum=GUI_ITERS, preprocess_fwd=GUI_FRAMES,
+                     preprocess_grad_fwd=GUI_ITERS, preprocess_bwd=GUI_ITERS)
             and len(losses) == GUI_ITERS and np.all(np.isfinite(losses))):
         fail("[viewer] train --gui check failed")
 
@@ -2631,7 +2841,8 @@ def semantics_path(root, seed, device, card):
           f"{losses[-1]:.5f}; splats "
           f"{int(state.n_active)}; the subprocess's artifacts vs the first card run's: "
           f"differ {again}")
-    if not (only(counts, raster_fwd=SEM_ITERS, raster_bwd=SEM_ITERS, segsum=SEM_ITERS)
+    if not (only(counts, raster_fwd=SEM_ITERS, raster_bwd=SEM_ITERS, segsum=SEM_ITERS,
+                 preprocess_grad_fwd=SEM_ITERS, preprocess_bwd=SEM_ITERS)
             and picked and len(augmented) == 1 and augmented[0][1] - augmented[0][0] == to_add
             and len(losses) == SEM_ITERS and np.all(np.isfinite(losses)) and not again):
         fail("[semantics] train --run_segmentation check failed")
@@ -2811,7 +3022,8 @@ def jpeg_path(root, seed, device, card):
           f"{JPEG_WIDTH // JPEG_FACTOR}x{JPEG_HEIGHT // JPEG_FACTOR} in {load_s:.3f} s, "
           f"each equal to read_jpeg + _resize_u8 of its file: {not mismatched}")
     if not (only(counts, raster_fwd=JPEG_ITERS + EVAL_RENDERS, raster_bwd=JPEG_ITERS,
-                 segsum=JPEG_ITERS, preprocess_fwd=EVAL_RENDERS)
+                 segsum=JPEG_ITERS, preprocess_fwd=EVAL_RENDERS,
+                 preprocess_grad_fwd=JPEG_ITERS, preprocess_bwd=JPEG_ITERS)
             and len(losses) == JPEG_ITERS and np.all(np.isfinite(losses))
             and len(loaded) == JPEG_VIEWS and not mismatched):
         fail("[jpeg] training check failed")
@@ -3104,7 +3316,7 @@ def synthetic_path(root, device, card, iters=SYNTH_ITERS, beside=""):
               + "; ".join(f"{k} L1 {v['l1']:.5f} PSNR {v['psnr']:.3f} SSIM {v['ssim']:.4f}"
                           for k, v in res.items()))
     if not (only(counts, raster_fwd=k1, raster_bwd=iters, segsum=iters,
-                 preprocess_fwd=k1 - iters)
+                 preprocess_fwd=k1 - iters, preprocess_grad_fwd=iters, preprocess_bwd=iters)
             and len(losses) == iters and np.isfinite(losses).all()
             and [i for i, *_ in ev["densify"]] == want["densify"]
             and ev["reset"] == want["reset"] and ev["sh"] == want["sh"]
@@ -4258,6 +4470,12 @@ def main(argv=None):
         errs["binning"] = 0.0
         t_phase = phase_wall("14 (binning)", t_phase)
 
+        # 15. the training step's preprocess (K8)
+        k8_err, k8_times, k8_bounds = preprocess_grad_path(state_s, cams, args.seed, dev,
+                                                           card)
+        errs["preprocess_grad_fwd"], errs["preprocess_bwd"] = 0.0, k8_err
+        t_phase = phase_wall("15 (training preprocess)", t_phase)
+
         # 5. the training paths
         counts, losses = train_path(root, args.seed, N_SPLATS, WIDTH, HEIGHT, dev)
         mp_counts = train_slots_path(root, dev, losses)
@@ -4344,9 +4562,13 @@ def main(argv=None):
                 "segsum": counts["segsum"],
                 "raster_fwd_seeded": mp_counts["raster_fwd_seeded"],
                 "raster_bwd_seeded": mp_counts["raster_bwd_seeded"],
-                "preprocess_fwd": counts["preprocess_fwd"], "binning": counts["binning"]}
+                "preprocess_fwd": counts["preprocess_fwd"], "binning": counts["binning"],
+                "preprocess_grad_fwd": counts["preprocess_grad_fwd"],
+                "preprocess_bwd": counts["preprocess_bwd"]}
     times["preprocess_fwd"], bounds["preprocess_fwd"] = k6_times, k6_bound
     times["binning"], bounds["binning"] = k7_times, k7_bound
+    times.update(k8_times)
+    bounds.update(k8_bounds)
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",
         "source": f"gaussmart_tpu_torch/csrc/{src}.cu", "replaces": replaces,

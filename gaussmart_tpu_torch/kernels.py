@@ -6,7 +6,8 @@ and return ``cudaGetLastError()``. ``launch`` is the one way in: it
 compiles the entry's source with nvcc for Hopper (sm_90a) into a shared
 library under ``build/gaussmart_tpu_torch/`` at first use, loads it with
 ctypes and calls the entry on a device's current stream; the library name
-carries a hash of the source and flags, so an edited source is rebuilt.
+carries a hash of the source, the headers beside it (csrc/*.cuh) and the
+flags, so an edited source or header is rebuilt.
 Nothing is built or loaded at import time, and nothing here runs for CPU
 tensors.
 
@@ -49,6 +50,10 @@ SIGNATURES = {
     "segsum": ("segsum", (_P,) * 5 + (_I,) * 2 + (_P,) * 2),
     "preprocess_fwd": ("preprocess", (_I,) + (_P,) * 8 + (_I,) * 2 + (_P,) + (_I,) * 2
                        + (_P,) + (_I,) * 4 + (_F,) + (_P,) * 5),
+    "preprocess_grad_fwd": ("preprocess_grad", (_I,) + (_P,) * 9 + (_I,) * 2 + (_P,)
+                            + (_I,) * 2 + (_P,) + (_I,) * 4 + (_F,) + (_P,) * 5),
+    "preprocess_bwd": ("preprocess_grad", (_I,) + (_P,) * 8 + (_I,) * 2 + (_P,) + (_I,) * 2
+                       + (_P,) * 2 + (_I,) * 4 + (_F,) + (_P,) * 8),
     "bin_count": ("binning", (_P, _I) + (_P,) * 4 + (_I,) * 3 + (_P,) * 4),
     "bin_emit": ("binning", (_P, _I) + (_P,) * 4 + (_I,) * 3 + (_P,) * 6),
     "bin_finish": ("binning", (_P,) * 4 + (_L,) * 2 + (_I,) * 2 + (_P,) * 5),
@@ -60,7 +65,8 @@ _entries: Dict[str, ctypes._CFuncPtr] = {}
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -89,7 +89,7 @@ def profile_trace(logdir: Optional[str]):
 # the launch counters of the hand-written kernels: K1, K2, K3, K4, K5, K6, K7
 # (binning: one a binning, whose three kernels launch together)
 LAUNCHES = ("raster_fwd", "raster_bwd", "raster_fwd_seeded", "raster_bwd_seeded", "segsum",
-            "preprocess_fwd", "binning")
+            "preprocess_fwd", "binning", "preprocess_grad_fwd", "preprocess_bwd")
 MAX_SPANS = 1 << 17     # the buffer keeps the newest spans
 
 

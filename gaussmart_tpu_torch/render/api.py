@@ -14,7 +14,11 @@ render() without a gradient (a single state on a CUDA device, backend
 "auto" or "pallas", no override colour, no means2d: the viewer,
 render_cli, the mesh export and the evaluation renders) builds the
 compositor's rows from the raw parameters in one pass, K6
-(render/preprocess_fused.py); every other call goes through render_arrays.
+(render/preprocess_fused.py). render_leaves, the training step's render
+of one state's raw parameters with a gradient on a CUDA device (the
+same conditions with the gradient wanted: leaf_route), does so in K8's
+autograd Function (render/preprocess_grad.py). Every other call goes
+through render_arrays and its chain.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from gaussmart_tpu_torch.logging_utils import span
 from gaussmart_tpu_torch.models.gaussians import GaussianState
 from gaussmart_tpu_torch.ops.depth_normal import depth_to_normal
 from gaussmart_tpu_torch.render import raster_common
-from gaussmart_tpu_torch.render.preprocess_fused import preprocess_fused
+from gaussmart_tpu_torch.render.preprocess_fused import preprocess_fused, rows_prep
+from gaussmart_tpu_torch.render.preprocess_grad import PreprocessCore
 from gaussmart_tpu_torch.render.raster_dense import rasterize_pixels
 from gaussmart_tpu_torch.render.raster_tiled import rasterize_tiled
 
@@ -184,6 +189,37 @@ def _render_fused(cam: CameraParams, state: GaussianState, bg_color: torch.Tenso
                           need_med_grad=(depth_ratio != 0.0), blob=fused.blob,
                           conics=fused.conics)
     return _package(cam, out, means2d, fused.prep.radius, depth_ratio)
+
+
+def leaf_route(params, backend: str) -> bool:
+    """Whether render_leaves takes K8 (PreprocessCore): a gradient wanted,
+    one state's parameters (not per-slot chunks) on a CUDA device, the
+    tiled backend (render_leaves has no override colour). fused_route's
+    conditions with the gradient's reversed."""
+    return (not isinstance(params, list) and params.xyz.device.type == "cuda"
+            and backend in ("auto", "pallas") and torch.is_grad_enabled())
+
+
+def render_leaves(cam: CameraParams, params, active: torch.Tensor, bg_color: torch.Tensor, *,
+                  means2d: torch.Tensor, sh_degree: int, active_degree: int,
+                  depth_ratio: float = 0.0, need_dist_grad: bool = True
+                  ) -> Dict[str, torch.Tensor]:
+    """The differentiable render of one state's raw parameters (`params`,
+    a GaussianParams of autograd leaves) and means2d through K8: its blob
+    and conic rows, then the tiled compositor, as render_arrays would
+    composite the activated arrays with active_degree's SH mask. Gradients
+    reach `params` and means2d through PreprocessCore's VJP. Callers take
+    it where leaf_route holds."""
+    cam = cam.to(params.xyz.device)
+    with span("render.preprocess"):
+        blob, conics, aux, valid = PreprocessCore.apply(
+            params.xyz, params.scaling, params.rotation, params.opacity, params.features_dc,
+            params.features_rest, means2d, active, cam, sh_degree, active_degree, 1.0)
+        prep = rows_prep(blob, aux, valid)
+    out = rasterize_tiled(prep, means2d, bg_color, cam.width, cam.height,
+                          need_dist_grad=need_dist_grad, need_med_grad=(depth_ratio != 0.0),
+                          blob=blob, conics=conics)
+    return _package(cam, out, means2d, prep.radius, depth_ratio)
 
 
 def _package(cam: CameraParams, out: Dict[str, torch.Tensor], means2d, radii,

@@ -4,8 +4,9 @@ From a GaussianState's raw parameters to what the binning and the forward
 compositor K1 read: the blob (build_blob's [N+1, 20] rows, means2d zero),
 the conic rows (build_conics' [N+1, 8]) and the per-splat fields that the
 binning and render()'s output dict read. render() takes this route when
-no gradient is wanted (see render/api.py); training keeps the unfused
-chain, through which autograd runs.
+no gradient is wanted (see render/api.py); the training step takes K8
+(render/preprocess_grad.py), the same kernel with means2d's shift and a
+hand-written VJP.
 
 preprocess_fused launches the kernel on the current stream and adds 1 to
 the launch counter "preprocess_fwd"; it takes CUDA tensors only.
@@ -96,10 +97,16 @@ def preprocess_fused(state: GaussianState, cam: CameraParams,
                    scale_modifier, blob.data_ptr(), conics.data_ptr(), aux.data_ptr(),
                    valid.data_ptr())
     count("preprocess_fwd", 1)
-    rows = blob[:n]
+    return Fused(rows_prep(blob, aux, valid), blob, conics)
+
+
+def rows_prep(blob: torch.Tensor, aux: torch.Tensor, valid: torch.Tensor) -> Preprocessed:
+    """The Preprocessed fields of a kernel's rows: T, center2d, opacity,
+    color and normal are views into the blob's columns, radius, depth, rx
+    and ry aux's rows; ell is None (its terms are the conic rows)."""
+    rows = blob[:-1]
     radius, depth, rx, ry = aux.unbind(0)
-    prep = Preprocessed(T=rows[:, :9].unflatten(1, (3, 3)), center2d=rows[:, 9:11],
+    return Preprocessed(T=rows[:, :9].unflatten(1, (3, 3)), center2d=rows[:, 9:11],
                         radius=radius, depth=depth, normal=rows[:, 17:20],
                         color=rows[:, 14:17], opacity=rows[:, 13], valid=valid, rx=rx, ry=ry,
                         ell=None)
-    return Fused(prep, blob, conics)

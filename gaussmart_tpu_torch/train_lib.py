@@ -2,9 +2,11 @@
 gaussmart_tpu/train_lib.py).
 
 The JAX package compiles the iteration into one XLA program; here it runs
-eagerly: forward render, losses, loss.backward() (the tiled backward is
-K2 plus the per-splat reduction, and means2d's .grad is the screen-space
-gradient), densification statistics, and the masked Adam step.
+eagerly: forward render (on a CUDA device the preprocess is K8's autograd
+Function, render/api.render_leaves), losses, loss.backward() (the tiled
+backward is K2 plus the per-splat reduction, then K8's VJP; means2d's
+.grad is the screen-space gradient), densification statistics, and the
+masked Adam step.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from gaussmart_tpu_torch.models.densify import (add_densification_stats,
                                                 densify_and_prune, reset_opacity)
 from gaussmart_tpu_torch.models.gaussians import GaussianAux, GaussianParams
 from gaussmart_tpu_torch.optim import NAMES, AdamState, adam_step, group_lrs
-from gaussmart_tpu_torch.render.api import render_arrays
+from gaussmart_tpu_torch.render.api import leaf_route, render_arrays, render_leaves
 
 __all__ = ["StepMetrics", "make_train_step", "make_densify_step", "reset_opacity"]
 
@@ -53,26 +55,32 @@ def _loss_and_aux(params, means2d, aux_state, cam: CameraParams, gt_image,
     backend and `mesh`, params, means2d and aux_state are lists of per-slot
     chunks, and extras["radii"] is too."""
     mark = phase or (lambda name: None)
-    if isinstance(params, list):
-        chunks = [_render_inputs(p, a) for p, a in zip(params, aux_state)]
-        arrays = {k: [c[k] for c in chunks] for k in chunks[0]}
+    # the SH schedule inside the step: bands above iteration // 1000 are
+    # masked to zero
+    active_degree = min(max(iteration // 1000, 0), sh_degree)
+    if leaf_route(params, backend):
+        pkg = render_leaves(cam, params, aux_state.active, bg, means2d=means2d,
+                            sh_degree=sh_degree, active_degree=active_degree,
+                            depth_ratio=depth_ratio, need_dist_grad=(opt.lambda_dist != 0.0))
     else:
-        with span("render.preprocess"):
-            arrays = _render_inputs(params, aux_state)
-    pkg = render_arrays(
-        cam,
-        **arrays,
-        sh_degree=sh_degree,
-        bg_color=bg,
-        means2d=means2d,
-        depth_ratio=depth_ratio,
-        backend=backend,
-        # the SH schedule inside the step: bands above iteration // 1000
-        # are masked to zero
-        active_degree=min(max(iteration // 1000, 0), sh_degree),
-        need_dist_grad=(opt.lambda_dist != 0.0),
-        mesh=mesh,
-    )
+        if isinstance(params, list):
+            chunks = [_render_inputs(p, a) for p, a in zip(params, aux_state)]
+            arrays = {k: [c[k] for c in chunks] for k in chunks[0]}
+        else:
+            with span("render.preprocess"):
+                arrays = _render_inputs(params, aux_state)
+        pkg = render_arrays(
+            cam,
+            **arrays,
+            sh_degree=sh_degree,
+            bg_color=bg,
+            means2d=means2d,
+            depth_ratio=depth_ratio,
+            backend=backend,
+            active_degree=active_degree,
+            need_dist_grad=(opt.lambda_dist != 0.0),
+            mesh=mesh,
+        )
     mark("render")
     image = pkg["render"]
     with span("losses.photometric"):

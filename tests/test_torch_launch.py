@@ -11,7 +11,8 @@ import torch
 from gaussmart_tpu_torch import kernels
 
 ENTRIES = ["raster_fwd", "raster_fwd_seeded", "raster_bwd", "raster_bwd_seeded", "segsum",
-           "preprocess_fwd", "bin_count", "bin_emit", "bin_finish"]
+           "preprocess_fwd", "preprocess_grad_fwd", "preprocess_bwd", "bin_count", "bin_emit",
+           "bin_finish"]
 
 
 def _prototype(source, entry):
